@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``elemental_tpu_torch``) once on one CUDA card.
+
+    python3 chip_smoke.py [--n1 224] [--max-iters 3] [--seed 0]
+
+Phases, each printing one line and each fatal when it fails:
+
+1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
+2. build: K1 (``csrc/extend_add.cu``) compiled with nvcc for sm_90a;
+3. K1 against its plain version on every level of the at-scale LP's KKT
+   plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
+   with the time of one whole factor's extend-add for both;
+4. sparse LDL of the 24³ Laplacian in float32, SPD and LDL kernels: solve
+   residual under the dtype's bound, K1 launched;
+5. the LP at full size: ``lp_direct`` for ``--max-iters`` iterations in
+   float32 (the ordering of phase 3 reused), after the first KKT factor is
+   checked against one made with the plain extend-add; its seconds per
+   iteration are the run's time less that of a ``max_iters=0`` run, which
+   returns the starting point.
+
+Then one JSON line of kernel results, and as the last line
+``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one (or
+without the package beside it) it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None       # the port must run with no JAX at all
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()`` ending in a device synchronisation."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_card():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"[1 card] {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+
+def phase_build():
+    from elemental_tpu_torch.kernels.extend_add import build
+    t0 = time.perf_counter()
+    path = build()
+    print(f"[2 build] K1 extend_add built with nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s -> {path}")
+
+
+def phase_k1(kkt, seed: int):
+    """K1 against ``index_add_`` on every level of the KKT plan."""
+    import torch
+    from elemental_tpu_torch.kernels.extend_add import (extend_add,
+                                                        extend_add_plain)
+    plan = kkt.ea_plan
+    levels = [plan.levels[li] for li in sorted(plan.levels)]
+    out = {}
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        pool0 = torch.rand(plan.pool_size, generator=g, device="cuda",
+                           dtype=dtype)
+        pk, pp = pool0.clone(), pool0.clone()
+        for lv in levels:
+            extend_add(pk, lv)
+            extend_add_plain(pp, lv)
+        torch.cuda.synchronize()
+        err = float((pk - pp).abs().max())
+        scale = float(pp.abs().max())
+        check(err <= rtol * scale,
+              f"K1 {dtype} max|err| {err:.3e} > {rtol:g}·max|pool| "
+              f"({scale:.3e})")
+
+        def run_kernel():
+            for lv in levels:
+                extend_add(pk, lv)
+
+        def run_plain():
+            for lv in levels:
+                extend_add_plain(pp, lv)
+
+        run_kernel(), run_plain()                  # warm
+        p1 = cuda_ms(run_plain, 5)
+        k1 = cuda_ms(run_kernel, 5)
+        k2 = cuda_ms(run_kernel, 5)
+        p2 = cuda_ms(run_plain, 5)
+        out[dtype] = dict(err=err, scale=scale, ms=(k1 + k2) / 2,
+                          plain_ms=(p1 + p2) / 2)
+        print(f"[3 K1] {str(dtype)[6:]}: {len(levels)} levels, "
+              f"{plan.n_pairs} pairs, max|err| {err:.3e} "
+              f"(max|pool| {scale:.3e}); one factor's extend-add: kernel "
+              f"{(k1 + k2) / 2:.3f} ms, index_add_ {(p1 + p2) / 2:.3f} ms")
+        del pool0, pk, pp
+    return out
+
+
+def phase_ldl():
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    from elemental_tpu_torch.matrices import sparse_laplacian_3d
+    from elemental_tpu_torch.sparse_direct import SparseLDLFactorization
+    A = sparse_laplacian_3d(24, 24, 24, scaled=False)
+    b = np.random.default_rng(0).standard_normal(A.height)
+    for spd in (True, False):
+        f = SparseLDLFactorization(device="cuda", dtype=torch.float32,
+                                   spd=spd).initialize(A, cutoff=64)
+        f.factor()                                  # warm
+        extend_add.launches = 0
+        _, tf = wall(f.factor)
+        launches = extend_add.launches
+        x, ts = wall(lambda: f.solve(b))
+        x = x.cpu().numpy().astype(np.float64)
+        r = float(np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b))
+        check(np.isfinite(r) and r < f.residual_bound(),
+              f"LDL (spd={spd}) residual {r:.3e} >= bound "
+              f"{f.residual_bound():.3e}")
+        check(launches > 0, f"LDL (spd={spd}) factor launched no K1")
+        print(f"[4 sparse LDL] 24^3 Laplacian f32 {'SPD' if spd else 'LDL'}"
+              f": factor {tf:.4f} s ({f.factor_gflops():.2f} GFlop), solve "
+              f"{ts:.4f} s, residual {r:.3e} < {f.residual_bound():.3e}, "
+              f"K1 launches {launches}")
+
+
+def phase_lp(A, b, c, kkt, max_iters: int):
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.extend_add import (extend_add,
+                                                        extend_add_plain)
+    from elemental_tpu_torch.optimization import LPCtrl, lp_direct
+    from elemental_tpu_torch.optimization.lp import (_resolve_numerics,
+                                                     _resolve_refine,
+                                                     sparse_ruiz)
+    from elemental_tpu_torch.sparse_direct import numeric
+    m, n = A.shape
+    f32 = torch.float32
+    gamma, _ = _resolve_numerics(LPCtrl(), f32)
+    nref = _resolve_refine(LPCtrl(), f32)
+    _, r, _ = sparse_ruiz(A)
+
+    # the first KKT factor of lp_direct (Θ = I): K1 against the plain
+    # extend-add, both on the card
+    vals = kkt.assemble([torch.ones(n, dtype=f32, device="cuda")])
+    kkt.prepare(vals)                               # warm
+    fk, t_factor = wall(lambda: kkt.prepare(vals))
+    numeric.extend_add = extend_add_plain
+    try:
+        fp, t_plain = wall(lambda: kkt.prepare(vals))
+    finally:
+        numeric.extend_add = extend_add
+    err = float((fk.pool - fp.pool).abs().max())
+    scale = float(fp.pool.abs().max())
+    check(np.isfinite(err) and err <= 1e-5 * scale,
+          f"first KKT factor: K1 vs plain max|err| {err:.3e} > "
+          f"1e-5·max|pool| ({scale:.3e})")
+    del fp
+    ctx, t_ctx = wall(fk.solve_context)
+    reg_diag = torch.cat([torch.full((n,), gamma), torch.full((m,), -gamma)]
+                         ).to("cuda", f32)
+    rhs = torch.cat([torch.zeros(n), torch.as_tensor(b / r)]).to("cuda", f32)
+    fk.solve_refined(rhs, reg_diag, iters=nref, ctx=ctx)   # warm
+    _, t_sweep = wall(lambda: fk.solve_refined(rhs, reg_diag, iters=nref,
+                                               ctx=ctx))
+    print(f"[5 LP] first KKT factor: K1 {t_factor:.3f} s, plain extend-add "
+          f"{t_plain:.3f} s, pools agree to {err:.3e} (max|pool| "
+          f"{scale:.3e}); panel inverses {t_ctx:.3f} s; FGMRES-{nref} sweep "
+          f"{t_sweep:.3f} s")
+    del fk, ctx
+
+    levels_with_children = len(kkt.ea_plan.levels)
+    ordering = kkt.symb.perm.cpu().numpy()
+    A_sp = A.to_scipy()
+
+    def rel_primal(x):
+        return float(np.linalg.norm(A_sp @ x - b) / (1 + np.linalg.norm(b)))
+
+    def solve(iters):
+        return wall(lambda: lp_direct(
+            A, b, c, LPCtrl(max_iters=iters, ordering=ordering),
+            device="cuda", dtype=f32))
+
+    # max_iters=0 returns the starting point: its residual is where the
+    # IPM starts, and its time (analysis, Θ=I factor, two solves) is what
+    # the full run spends before its first iteration
+    start, t_start = solve(0)
+    torch.cuda.reset_peak_memory_stats()
+    extend_add.launches = 0
+    res, t_lp = solve(max_iters)
+    launches = extend_add.launches
+    factors = 1 + res.iterations
+    for x in (res.x, res.y, res.z):
+        check(np.all(np.isfinite(x)), "non-finite iterate")
+    check(res.iterations >= 1, "no IPM iteration ran")
+    r0, r1 = rel_primal(start.x), rel_primal(res.x)
+    check(r1 < r0, f"relative primal residual did not fall: {r0:.3e} -> "
+          f"{r1:.3e}")
+    check(launches >= factors * levels_with_children,
+          f"K1 launched {launches} times, expected at least "
+          f"{factors} factors x {levels_with_children} levels")
+    print(f"[5 LP] lp_direct concat_fd_2d m={m} n={n} f32: {res.iterations} "
+          f"iterations in {t_lp:.2f} s; a max_iters=0 run (analysis and "
+          f"starting point) took {t_start:.2f} s, so "
+          f"{(t_lp - t_start) / res.iterations:.3f} s/iteration; relative "
+          f"primal residual {r0:.3e} -> {r1:.3e}; metric {res.metric:.3e}, "
+          f"converged={res.converged}; K1 launches {launches} = {factors} "
+          f"factors x {levels_with_children} levels; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n1", type=int, default=224,
+                    help="grid side of the LP (n = 2·n1² variables)")
+    ap.add_argument("--max-iters", type=int, default=3,
+                    help="IPM iterations of the LP phase")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import elemental_tpu_torch  # noqa: F401  (fails outside the repo)
+    from elemental_tpu_torch.matrices import concat_fd_2d
+    from elemental_tpu_torch.optimization import LPCtrl
+    from elemental_tpu_torch.optimization.lp import (_build_lp_kkt,
+                                                     _resolve_numerics,
+                                                     sparse_ruiz)
+
+    phase_card()
+    phase_build()
+
+    A = concat_fd_2d(args.n1, args.n1)
+    m, n = A.shape
+    rng = np.random.default_rng(args.seed)
+    x0 = np.abs(rng.standard_normal(n)) + 0.1
+    b = A.to_scipy() @ x0
+    c = np.abs(rng.standard_normal(n)) + 0.5
+    gamma, _ = _resolve_numerics(LPCtrl(), torch.float32)
+    t0 = time.perf_counter()
+    kkt, _ = _build_lp_kkt(sparse_ruiz(A)[0], gamma, gamma, None,
+                           device="cuda", dtype=torch.float32)
+    t_host = time.perf_counter() - t0
+    print(f"[3 K1] host analysis of the KKT (N={kkt.N}, nnz={kkt.nnz}, "
+          f"{kkt.symb.num_levels} levels, pool {kkt.symb.pool_size}): "
+          f"{t_host:.2f} s")
+    k1 = phase_k1(kkt, args.seed)
+    phase_ldl()
+    launches = phase_lp(A, b, c, kkt, args.max_iters)
+
+    r32 = k1[torch.float32]
+    print(json.dumps({"kernels": [{
+        "name": "extend_add", "route": "cuda",
+        "source": "elemental_tpu_torch/csrc/extend_add.cu",
+        "replaces": "elemental_tpu/kernels/extend_add.py:58",
+        "launches": launches, "max_abs_err": r32["err"],
+        "ms": r32["ms"], "plain_ms": r32["plain_ms"]}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
