@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--n1 224] [--max-iters 3] [--seed 0]
 
-Phases, each printing one line and each fatal when it fails:
+Phases, each printing at least one line and each fatal when it fails:
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: K1 (``csrc/extend_add.cu``) compiled with nvcc for sm_90a;
+2. build: K1 (``csrc/extend_add.cu``), K2 (``csrc/csr_spmv.cu``) and K3
+   (``csrc/stencil_spmv.cu``), one nvcc each for sm_90a, all started
+   together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
    plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
    with the time of one whole factor's extend-add for both;
@@ -16,7 +18,18 @@ Phases, each printing one line and each fatal when it fails:
    float32 (the ordering of phase 3 reused), after the first KKT factor is
    checked against one made with the plain extend-add; its seconds per
    iteration are the run's time less that of a ``max_iters=0`` run, which
-   returns the starting point.
+   returns the starting point;
+6. K3: ``plan_spmv`` of the 1024² 2-D Laplacian/8 and the 128³ 3-D
+   Laplacian on the card (kind 'stencil'), one ``SpMVPlan.matvec`` each in
+   float32 and float64 held against the plain version and scipy, and the
+   kernel and plain times over 100 launches;
+7. 'stencil_rcm': a scrambled symmetric banded matrix (n = 2²⁰, bandwidth
+   6) planned and multiplied through the permutation boundary, against
+   scipy;
+8. K2: the uniform-random CSR (n = 2²⁰, 10 entries a row) planned on the
+   card (kind 'gather_csr'), as phase 6;
+9. CG on the unscaled 1024² Laplacian in float32 (tol 1e-6) through the
+   stencil plan: iterations, residuals, seconds per iteration, K3 launches.
 
 Then one JSON line of kernel results, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one (or
@@ -74,11 +87,25 @@ def phase_card():
 
 
 def phase_build():
-    from elemental_tpu_torch.kernels.extend_add import build
+    """nvcc for every kernel of the port, one process per source, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from elemental_tpu_torch.kernels import extend_add, spmv, unstructured
+
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = build()
-    print(f"[2 build] K1 extend_add built with nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s -> {path}")
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [(name, pool.submit(timed, mod.build)) for name, mod in (
+            ("K1 extend_add", extend_add), ("K2 gather_spmv", unstructured),
+            ("K3 stencil_spmv", spmv))]
+        built = [(name, *job.result()) for name, job in jobs]
+    for name, path, dt in built:
+        print(f"[2 build] {name} built with nvcc for sm_90a in {dt:.2f} s "
+              f"-> {path}")
+    print(f"[2 build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_k1(kkt, seed: int):
@@ -241,6 +268,178 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     return launches
 
 
+def time_pair(kernel, plain, reps: int = 100):
+    """(kernel ms, plain ms): each warmed, then timed over ``reps``
+    back-to-back launches in the order plain, kernel, kernel, plain."""
+    kernel(), plain()
+    p1, k1 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
+    k2, p2 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def spmv_cases(tag, M, kind, launch, plain, seed):
+    """Plan ``M`` with ``plan_spmv`` on the card (asserting ``kind``); in
+    float32 and float64 drive one ``SpMVPlan.matvec`` (the main path, its
+    kernel launches counted), hold it against the plain version and scipy,
+    and time kernel and plain.  Returns the main path's launches and the
+    float32 result."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.sparse import plan_spmv
+    t0 = time.perf_counter()
+    host = plan_spmv(M)
+    t_plan = time.perf_counter() - t0
+    check(host.kind == kind, f"{tag}: plan_spmv chose {host.kind!r}, "
+          f"expected {kind!r}")
+    x64 = np.random.default_rng(seed).standard_normal(M.width)
+    A_sp = M.to_scipy().astype(np.float64)
+    launches, out = 0, None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        plan = host.to("cuda", dtype)
+        x = torch.from_numpy(x64).to("cuda", dtype)
+        part = plan.stencil if plan.stencil is not None else plan.gather
+        launch.launches = 0
+        y = plan.matvec(x)
+        torch.cuda.synchronize()
+        n_main = launch.launches
+        check(n_main == 1, f"{tag}: SpMVPlan.matvec launched the kernel "
+              f"{n_main} times")
+        launches += n_main
+        ref = plain(part, x)
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        expect = A_sp @ x.cpu().numpy().astype(np.float64)
+        host_err = float(np.abs(y.cpu().numpy() - expect).max())
+        check(np.isfinite(err) and err <= tol * scale,
+              f"{tag} {dtype}: kernel vs plain max|err| {err:.3e} > "
+              f"{tol:g}·max|y| ({scale:.3e})")
+        check(host_err <= 10 * tol * scale,
+              f"{tag} {dtype}: kernel vs scipy max|err| {host_err:.3e}")
+        ms, plain_ms = time_pair(lambda: launch(part, x),
+                                 lambda: plain(part, x))
+        gbs = plan.stream_bytes / (ms * 1e-3) / 1e9
+        print(f"{tag} {str(dtype)[6:]}: n={M.height} nnz={M.nnz}, "
+              f"plan {t_plan:.2f} s (host); max|err| vs plain {err:.3e}, "
+              f"vs scipy {host_err:.3e} (max|y| {scale:.3e}); kernel "
+              f"{ms:.4f} ms ({gbs:.0f} GB/s of stream_bytes), plain "
+              f"{plain_ms:.4f} ms over 100 launches")
+        if dtype == torch.float32:
+            out = dict(err=err, ms=ms, plain_ms=plain_ms)
+        del plan, x, y, ref
+    return launches, out
+
+
+def phase_k3(A2, seed: int):
+    """K3 on the bench's 1024² Laplacian/8 and the 128³ Laplacian."""
+    from elemental_tpu_torch.kernels.spmv import (stencil_spmv,
+                                                  stencil_spmv_plain)
+    from elemental_tpu_torch.matrices import sparse_laplacian_3d
+    launches = 0
+    cases = (("1024^2 Laplacian/8", A2.change_nonzero_values(A2.vals / 8.0)),
+             ("128^3 Laplacian", sparse_laplacian_3d(128, 128, 128,
+                                                     scaled=False)))
+    for label, M in cases:
+        n, out = spmv_cases(f"[6 K3] {label}", M, "stencil", stencil_spmv,
+                            stencil_spmv_plain, seed)
+        launches += n
+        if label.startswith("1024"):
+            result = out
+    return launches, result
+
+
+def phase_rcm(seed: int):
+    """A scrambled symmetric banded matrix through 'stencil_rcm'."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from elemental_tpu_torch.kernels.spmv import stencil_spmv
+    from elemental_tpu_torch.sparse import SparseMatrix, plan_spmv
+    n, bw = 1 << 20, 6
+    rng = np.random.default_rng(seed)
+    offs = list(range(-bw, bw + 1))
+    S = sp.diags([rng.standard_normal(n) for _ in offs], offs, shape=(n, n),
+                 format="csr")
+    S = (S + S.T).astype(np.float32)
+    p = rng.permutation(n)
+    A = SparseMatrix.from_scipy(S[p][:, p].tocsr())
+    t0 = time.perf_counter()
+    host = plan_spmv(A)
+    t_plan = time.perf_counter() - t0
+    check(host.kind == "stencil_rcm",
+          f"scrambled banded: plan_spmv chose {host.kind!r}")
+    plan = host.to("cuda", torch.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    stencil_spmv.launches = 0
+    y = plan.from_plan_space(plan.matvec(plan.to_plan_space(
+        torch.from_numpy(x).to("cuda"))))
+    torch.cuda.synchronize()
+    launches = stencil_spmv.launches
+    check(launches == 1, f"stencil_rcm: {launches} K3 launches")
+    expect = A.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    err = float(np.abs(y.cpu().numpy() - expect).max())
+    scale = float(np.abs(expect).max())
+    check(err <= 1e-5 * scale, f"stencil_rcm: max|err| vs scipy {err:.3e} "
+          f"> 1e-5·max|y| ({scale:.3e})")
+    print(f"[7 stencil_rcm] n={n} nnz={A.nnz} bandwidth {bw}, scrambled: "
+          f"plan (RCM + DIA) {t_plan:.2f} s (host), "
+          f"{len(plan.stencil.offsets)} diagonals; f32 max|err| vs scipy "
+          f"{err:.3e} (max|y| {scale:.3e}); K3 launches {launches}")
+    return launches
+
+
+def phase_k2(seed: int):
+    """K2 on the bench's uniform-random CSR (n = 2^20, 10 a row)."""
+    import numpy as np
+    from elemental_tpu_torch.kernels.unstructured import (gather_spmv,
+                                                          gather_spmv_plain)
+    from elemental_tpu_torch.sparse import SparseMatrix
+    n = 1 << 20
+    rng = np.random.default_rng(seed)
+    A = SparseMatrix.from_coo(n, n, np.repeat(np.arange(n), 10),
+                              rng.integers(0, n, 10 * n),
+                              rng.standard_normal(10 * n))
+    return spmv_cases("[8 K2] uniform random d=10", A, "gather_csr",
+                      gather_spmv, gather_spmv_plain, seed)
+
+
+# f32 CG on the unscaled 1024^2 Laplacian: the bound on the true relative
+# residual ‖b − A·x‖/‖b‖, computed on the host in float64 (PERF.md).
+CG_RESIDUAL_BOUND = 1e-3
+
+
+def phase_cg(A2, seed: int):
+    """CG through the 1024² stencil plan in float32, as
+    examples/cg_laplacian.py runs it."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.spmv import stencil_spmv
+    from elemental_tpu_torch.lapack import cg
+    from elemental_tpu_torch.sparse import plan_spmv
+    host = plan_spmv(A2)
+    check(host.kind == "stencil", f"CG: plan_spmv chose {host.kind!r}")
+    plan = host.to("cuda", torch.float32)
+    b = np.random.default_rng(seed).standard_normal(A2.height).astype(
+        np.float32)
+    bt = torch.from_numpy(b).to("cuda")
+    stencil_spmv.launches = 0
+    res, t = wall(lambda: cg(plan.matvec, bt, tol=1e-6, max_iters=20000))
+    launches = stencil_spmv.launches
+    x = res.x.cpu().numpy().astype(np.float64)
+    check(np.all(np.isfinite(x)), "CG: non-finite x")
+    check(res.iterations > 0 and launches == res.iterations + 1,
+          f"CG: {launches} K3 launches for {res.iterations} iterations")
+    bnorm = float(np.linalg.norm(b.astype(np.float64)))
+    rel = float(np.linalg.norm(A2.to_scipy() @ x - b) / bnorm)
+    check(rel < CG_RESIDUAL_BOUND, f"CG: host residual {rel:.3e} >= "
+          f"{CG_RESIDUAL_BOUND:g}")
+    print(f"[9 CG] 1024^2 Laplacian f32, tol 1e-6: {res.iterations} "
+          f"iterations in {t:.3f} s ({t / res.iterations * 1e3:.4f} "
+          f"ms/iteration); recurrence residual {res.residual / bnorm:.3e}, "
+          f"host-verified (float64, scipy) {rel:.3e} < "
+          f"{CG_RESIDUAL_BOUND:g}; K3 launches {launches} = iterations + 1")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -256,7 +455,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import elemental_tpu_torch  # noqa: F401  (fails outside the repo)
-    from elemental_tpu_torch.matrices import concat_fd_2d
+    from elemental_tpu_torch.matrices import concat_fd_2d, sparse_laplacian_2d
     from elemental_tpu_torch.optimization import LPCtrl
     from elemental_tpu_torch.optimization.lp import (_build_lp_kkt,
                                                      _resolve_numerics,
@@ -282,6 +481,17 @@ def main() -> int:
     k1 = phase_k1(kkt, args.seed)
     phase_ldl()
     launches = phase_lp(A, b, c, kkt, args.max_iters)
+    del kkt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    A2 = sparse_laplacian_2d(1024, 1024, scaled=False)
+    k3_launches, k3 = phase_k3(A2, args.seed)
+    k3_launches += phase_rcm(args.seed)
+    k2_launches, k2 = phase_k2(args.seed)
+    k3_launches += phase_cg(A2, args.seed)
+    print(f"[6-9] the SpMV and CG phases took {time.perf_counter() - t0:.1f} "
+          f"s (host planning included)")
 
     r32 = k1[torch.float32]
     print(json.dumps({"kernels": [{
@@ -289,7 +499,17 @@ def main() -> int:
         "source": "elemental_tpu_torch/csrc/extend_add.cu",
         "replaces": "elemental_tpu/kernels/extend_add.py:58",
         "launches": launches, "max_abs_err": r32["err"],
-        "ms": r32["ms"], "plain_ms": r32["plain_ms"]}]}))
+        "ms": r32["ms"], "plain_ms": r32["plain_ms"]}, {
+        "name": "stencil_spmv", "route": "cuda",
+        "source": "elemental_tpu_torch/csrc/stencil_spmv.cu",
+        "replaces": "elemental_tpu/kernels/spmv.py:123",
+        "launches": k3_launches, "max_abs_err": k3["err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"]}, {
+        "name": "gather_spmv", "route": "cuda",
+        "source": "elemental_tpu_torch/csrc/csr_spmv.cu",
+        "replaces": "elemental_tpu/kernels/unstructured.py:179",
+        "launches": k2_launches, "max_abs_err": k2["err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

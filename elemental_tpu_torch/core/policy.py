@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["effective_dtype", "residual_bound", "working_dtype"]
+__all__ = ["effective_dtype", "index_dtype", "residual_bound",
+           "working_dtype"]
 
 _REAL = (torch.float32, torch.float64)
 
@@ -49,3 +50,9 @@ def residual_bound(dtype, n: int, factor: float = 100.0) -> float:
     an n×n system: ``factor * eps(dtype) * n``."""
     eps = float(torch.finfo(effective_dtype(dtype)).eps)
     return factor * eps * max(int(n), 1)
+
+
+def index_dtype(size: int) -> np.dtype:
+    """The port's one index-width rule: int32 index arrays below 2³¹
+    elements, int64 above."""
+    return np.dtype(np.int32 if size < 2**31 - 1 else np.int64)

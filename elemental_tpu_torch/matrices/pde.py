@@ -1,4 +1,4 @@
-"""Sparse PDE operators used by the port's main path (counterpart of part of
+"""Sparse PDE operators (counterpart of the sparse overloads of
 ``elemental_tpu/matrices/pde.py``, plus ``concat_fd_2d`` from
 ``examples/lp_direct_large.py``).  Host NumPy, returning
 :class:`~..sparse.csr.SparseMatrix`."""
@@ -33,13 +33,38 @@ def _sparse_stencil(dims: Tuple[int, ...], diag_val, off_val) -> SparseMatrix:
                                  sum_duplicates=True)
 
 
+def _laplacian_sparse(dims: Tuple[int, ...], shift: float = 0.0,
+                      scaled: bool = True) -> SparseMatrix:
+    """Negative Laplacian on a ``dims`` grid over (0,1)^d with Dirichlet
+    boundaries, scaled by 1/h² (h from ``dims[0]``) when ``scaled``, minus
+    ``shift`` on the diagonal (Helmholtz −Δ − ω²)."""
+    d = len(dims)
+    h2inv = float((dims[0] + 1) ** 2) if scaled else 1.0
+    return _sparse_stencil(dims, 2.0 * d * h2inv - shift, -1.0 * h2inv)
+
+
+def sparse_laplacian_1d(n1: int, scaled: bool = True) -> SparseMatrix:
+    return _laplacian_sparse((n1,), scaled=scaled)
+
+
+def sparse_laplacian_2d(n1: int, n2: int, scaled: bool = True) -> SparseMatrix:
+    return _laplacian_sparse((n1, n2), scaled=scaled)
+
+
 def sparse_laplacian_3d(n1: int, n2: int, n3: int,
                         scaled: bool = True) -> SparseMatrix:
-    """Negative 3-D Laplacian, 7-point stencil on an n1×n2×n3 grid over
-    (0,1)³ with Dirichlet boundaries, scaled by 1/h² when ``scaled``
+    """Negative 3-D Laplacian, 7-point stencil on an n1×n2×n3 grid
     (positive definite)."""
-    h2inv = float((n1 + 1) ** 2) if scaled else 1.0
-    return _sparse_stencil((n1, n2, n3), 6.0 * h2inv, -1.0 * h2inv)
+    return _laplacian_sparse((n1, n2, n3), scaled=scaled)
+
+
+def sparse_helmholtz_2d(n1: int, n2: int, shift: float) -> SparseMatrix:
+    return _laplacian_sparse((n1, n2), shift=shift)
+
+
+def sparse_helmholtz_3d(n1: int, n2: int, n3: int,
+                        shift: float) -> SparseMatrix:
+    return _laplacian_sparse((n1, n2, n3), shift=shift)
 
 
 def concat_fd_2d(n0: int, n1: int) -> SparseMatrix:

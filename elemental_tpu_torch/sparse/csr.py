@@ -94,6 +94,12 @@ class SparseMatrix:
         return cls.from_coo(a.shape[0], a.shape[1], rows, cols,
                             a[rows, cols])
 
+    @classmethod
+    def from_scipy(cls, m) -> "SparseMatrix":
+        m = m.tocsr()
+        return cls(m.shape[0], m.shape[1], m.indptr.astype(np.int64),
+                   m.indices.astype(np.int64), m.data)
+
     # ---------------- queries ----------------
     @property
     def nnz(self) -> int:
@@ -193,6 +199,13 @@ class CSRDevice:
     rows: torch.Tensor    # (nnz,) int64, sorted (CSR order)
     colind: torch.Tensor  # (nnz,) int64
     vals: torch.Tensor    # (nnz,)
+
+    def to(self, device=None, dtype=None) -> "CSRDevice":
+        """A copy on ``device`` with values in ``dtype`` (either kept when
+        None)."""
+        return dataclasses.replace(
+            self, rows=self.rows.to(device), colind=self.colind.to(device),
+            vals=self.vals.to(device, dtype))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         prod = self.vals * x.index_select(0, self.colind)

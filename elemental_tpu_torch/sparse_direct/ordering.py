@@ -2,8 +2,8 @@
 symbolic/NestedDissection.cpp``: recursive graph bisection with minimum-degree
 leaves, ``:17-56``).
 
-Host-side NumPy plus the native minimum-degree kernel, ported as they are
-from ``elemental_tpu/sparse_direct/ordering.py``.
+Host-side NumPy plus the native minimum-degree and reverse Cuthill-McKee
+kernels, ported as they are from ``elemental_tpu/sparse_direct/ordering.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,26 @@ def minimum_degree(A) -> np.ndarray:
     """Minimum-degree ordering (quotient-graph, native C++)."""
     from . import native
     return native.minimum_degree(_adjacency(A))
+
+
+def _sym_pattern_csr(A) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetrized CSR pattern, no self loops (native-kernel input form)."""
+    import scipy.sparse as sp
+    g = A.graph() if isinstance(A, SparseMatrix) else A
+    pat = sp.csr_matrix(
+        (np.ones(g.num_edges, np.int8), g.colind, g.rowptr),
+        shape=(g.num_sources, g.num_targets))
+    pat = (pat + pat.T).tocsr()
+    pat.setdiag(0)
+    pat.eliminate_zeros()
+    return pat.indptr.astype(np.int64), pat.indices.astype(np.int64)
+
+
+def reverse_cuthill_mckee(A) -> np.ndarray:
+    """RCM band-reducing ordering (bandwidth → DIA-kernel friendliness), by
+    the native C++ kernel (``el_rcm``); there is no Python fallback."""
+    from . import native
+    return native.rcm(*_sym_pattern_csr(A))
 
 
 def _pseudo_peripheral(adj: List[np.ndarray], nodes: np.ndarray) -> int:

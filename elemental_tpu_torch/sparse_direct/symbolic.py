@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.policy import index_dtype
 from ..sparse.csr import SparseMatrix
 
 
@@ -245,11 +246,6 @@ class LevelPlan:
 
 LEVEL_ARRAY_FIELDS = ("front_rows", "asm_dst", "asm_src", "child_dst",
                       "child_src", "diag_dst", "diag_cols")
-
-
-def index_dtype(pool_size: int):
-    """int32 index arrays while the pool allows, int64 beyond."""
-    return np.int32 if pool_size < 2**31 - 1 else np.int64
 
 
 @dataclasses.dataclass
