@@ -16,21 +16,25 @@ both:
   ``index_add_`` (``CSRDevice.matvec``), as the JAX package computes it in
   XLA with no Pallas.
 
-``kind='bridged'`` (the reference's gather → route → one-hot combine tier,
-kernel K7) is not ported yet.
+``kind='bridged'`` (opt-in, never chosen by 'auto', as in the reference)
+plans the bridged tier instead: a stream gather into bucket-major slots,
+then the bucketed combine K7 (``kernels/unstructured.py``,
+:class:`~..kernels.unstructured.BridgedPlan`, held in ``gather``).  Its y is
+float32 whatever the plan's dtype, as the reference's is.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.policy import effective_dtype
 from ..kernels.spmv import StencilPlan, plan_stencil_spmv, stencil_spmv
-from ..kernels.unstructured import GatherPlan, plan_gather_spmv
+from ..kernels.unstructured import (BridgedPlan, GatherPlan,
+                                   plan_bridged_spmv, plan_gather_spmv)
 from .csr import CSRDevice, SparseMatrix
 from .dia import to_dia
 
@@ -43,19 +47,21 @@ class SpMVPlan:
     once per solve, never in the hot loop).  Built on the host; move it
     with :meth:`to`."""
 
-    kind: str   # 'stencil' | 'stencil_rcm' | 'gather_csr' | 'csr'
+    # 'stencil' | 'stencil_rcm' | 'gather_csr' | 'csr' | 'bridged'
+    kind: str
     height: int
     width: int
     nnz: int
     stencil: Optional[StencilPlan] = None
     csr: Optional[CSRDevice] = None
-    gather: Optional[GatherPlan] = None
+    gather: Optional[Union[GatherPlan, BridgedPlan]] = None
     perm: Optional[np.ndarray] = None      # plan index -> original index
     iperm: Optional[np.ndarray] = None
 
     def to(self, device=None, dtype=None) -> "SpMVPlan":
         """A copy on ``device`` with values in ``dtype`` (either kept when
-        None)."""
+        None); every part, ``GatherPlan`` or ``BridgedPlan`` alike, moves
+        with its own ``.to``."""
         moved = {f: getattr(self, f).to(device, dtype)
                  for f in ("stencil", "csr", "gather")
                  if getattr(self, f) is not None}
@@ -83,11 +89,17 @@ class SpMVPlan:
         """Device-memory bytes one product streams, for the port's own
         layouts: DIA (S+2)·n·itemsize; CSR nnz·(itemsize + index size) +
         (n+1)·index size + 2·n·itemsize; the row-id ``csr`` tier reads two
-        index arrays per entry."""
+        index arrays per entry; the bridged tier slots·(itemsize + index
+        size + 4 for ``lr``) + the float32 y of nbuckets·bucket rows."""
         n = self.height
         if self.stencil is not None:
             st = self.stencil
             return (len(st.offsets) + 2) * n * st.weights.element_size()
+        if isinstance(self.gather, BridgedPlan):
+            g = self.gather
+            return (g.slots * (g.vals_b.element_size()
+                               + g.cols_b.element_size() + 4)
+                    + 4 * g.nbuckets * g.bucket)
         if self.gather is not None:
             g = self.gather
             item, idx = g.vals.element_size(), g.rowptr.element_size()
@@ -118,12 +130,11 @@ def plan_spmv(A: SparseMatrix, cols: int = 1024, try_rcm: bool = True,
     built on the host, with A's values in their dtype; ``.to(device,
     dtype)`` moves it.  ``cols`` and ``max_halo`` only decide, as in the
     reference, when a banded matrix counts as a stencil;
-    ``pallas_gather=False`` picks the plain ``csr`` tier over K2."""
+    ``pallas_gather=False`` picks the plain ``csr`` tier over K2;
+    ``kind='bridged'`` plans the bridged tier."""
     if kind == "bridged":
-        raise NotImplementedError(
-            "plan_spmv(kind='bridged') needs kernel K7, which is not ported "
-            "to elemental_tpu_torch yet; see ROADMAP.md, queue 1 (the "
-            "bridged SpMV tier)")
+        return SpMVPlan("bridged", A.height, A.width, A.nnz,
+                        gather=plan_bridged_spmv(A))
     if kind != "auto":
         raise ValueError(f"plan_spmv: unknown kind {kind!r}")
 

@@ -267,8 +267,14 @@ def test_nonsquare_banded_is_right():
 
 
 def test_bridged_is_not_ported():
+    """``kind='bridged'`` plans the bridged tier (K7; its parity tests are
+    in ``test_torch_bridged.py``) even where 'auto' picks a stencil; an
+    unknown kind is refused."""
     A = matrices.sparse_laplacian_2d(4, 4)
-    with pytest.raises(NotImplementedError, match="K7"):
-        plan_spmv(A, kind="bridged")
+    plan = plan_spmv(A, kind="bridged")
+    assert plan.kind == "bridged" and plan.stencil is None
+    x = np.random.default_rng(0).standard_normal(A.width)
+    np.testing.assert_allclose(plan.matvec(torch.from_numpy(x)).numpy(),
+                               A.to_scipy() @ x, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         plan_spmv(A, kind="ell")
