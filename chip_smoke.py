@@ -8,7 +8,8 @@ Phases, each printing at least one line and each fatal when it fails:
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: K1 (``csrc/extend_add.cu``), K2 (``csrc/csr_spmv.cu``), K3
    (``csrc/stencil_spmv.cu``), the bridged tier's stream gather and K7
-   (``csrc/bridged.cu``), K4 and K5 (``csrc/matmul.cu``) and K6
+   (``csrc/bridged.cu``), K4's SIMT kernel and K5 (``csrc/matmul.cu``),
+   K4's wgmma, dmma and ffma kernels (``csrc/matmul_sm90.cu``) and K6
    (``csrc/elementwise.cu``), one nvcc each for sm_90a, all started
    together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
@@ -24,7 +25,8 @@ Phases, each printing at least one line and each fatal when it fails:
 6. K3: ``plan_spmv`` of the 1024² 2-D Laplacian/8 and the 128³ 3-D
    Laplacian on the card (kind 'stencil'), one ``SpMVPlan.matvec`` each in
    float32 and float64 held against the plain version and scipy, and the
-   kernel and plain times over 100 launches;
+   kernel, plain and cuSPARSE (``torch.sparse_csr_tensor(...) @ x``) times
+   over 100 launches;
 7. 'stencil_rcm': a scrambled symmetric banded matrix (n = 2²⁰, bandwidth
    6) planned and multiplied through the permutation boundary, against
    scipy;
@@ -37,16 +39,24 @@ Phases, each printing at least one line and each fatal when it fails:
     against the plain versions of both stages and scipy; the stream gather
     and K7 each against its plain version, and the whole matvec against
     the whole plain path and against K2 on the same matrix;
-11. K4 ``matmul`` at 4096³ in float32, bfloat16 and float64 against the
-    float64 product and ``torch.matmul`` (TF32 off), with TFLOP/s;
+11. K4 ``matmul`` at 4096³ in float32, bfloat16 and float64 (the ffma,
+    wgmma and dmma paths, asserted by their counters), at 3000×1000×2056
+    through the same paths and at 4096×4095×4096 float32 (the SIMT path),
+    against the float64 product and ``torch.matmul`` (cuBLAS, TF32 off):
+    TFLOP/s, the fraction of the bound, kernel/cuBLAS, and the SIMT
+    kernel's time at 4096³ beside the new path's;
 12. K5 ``masked_rank_k_update`` at m = n = 4096, k = 128 (the default
     blocksize), lower and upper, float32 and float64: the triangle against
     the plain version, the rest bit-equal to c;
 13. K6 ``axpy``, ``scale``, ``hadamard``, ``copy``, ``fill`` and
     ``transpose`` on 8192² float32 (``transpose`` also on 8192×4096)
-    against their plain versions, with GB/s.
+    against their plain versions (torch's own kernels), with GB/s and
+    kernel/torch, the latter also with the window opened on an idle card.
 
-Then one JSON line of kernel results, and as the last line
+Then one JSON line of kernel results (each with its bound: the bytes it
+must move at 3.35 TB/s or its operations at the dtype's peak, whichever
+is longer, and the time of one PyTorch call that computes the same
+function, or null), and as the last line
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one (or
 without the package beside it) it exits non-zero and prints no result.
 """
@@ -67,11 +77,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events).  With
+    ``queued``, one more run is queued ahead of the start event, so the card
+    is busy while the host issues the first timed launch and the window
+    holds device time, not the host's launch cost; without it the window
+    opens on an idle card, as every time before PR 4 was taken."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        fn()
     start.record()
     for _ in range(reps):
         fn()
@@ -88,6 +104,22 @@ def wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+# NVIDIA's H100 SXM data sheet: HBM3 bytes/s, and FLOP/s by dtype (bfloat16
+# and float64 on the tensor cores, float32 on the CUDA cores: K4's float32
+# is never TF32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float64": 67e12, "float32": 67e12}
+
+
+def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32"):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the longer of the bytes at HBM_BYTES_PER_S and the FLOPs at the
+    dtype's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def phase_card():
@@ -116,7 +148,8 @@ def phase_build():
               ("K2 gather_spmv", unstructured.build),
               ("K3 stencil_spmv", spmv.build),
               ("stream gather + K7 combine", unstructured.build_bridged),
-              ("K4 matmul + K5 masked_rank_k_update", matmul.build),
+              ("K4 simt + K5 masked_rank_k_update", matmul.build),
+              ("K4 wgmma + dmma + ffma", matmul.build_sm90),
               ("K6 elementwise", elementwise.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -164,8 +197,13 @@ def phase_k1(kkt, seed: int):
         k1 = cuda_ms(run_kernel, 5)
         k2 = cuda_ms(run_kernel, 5)
         p2 = cuda_ms(run_plain, 5)
+        # each pair reads its source index and value, each destination
+        # its index and two offsets and updates its value
+        idx, item = levels[0].src.element_size(), pk.element_size()
+        nbytes = sum(lv.n_pairs * (idx + item) + (lv.n_udst + 1) * idx
+                     + lv.n_udst * (idx + 2 * item) for lv in levels)
         out[dtype] = dict(err=err, scale=scale, ms=(k1 + k2) / 2,
-                          plain_ms=(p1 + p2) / 2)
+                          plain_ms=(p1 + p2) / 2, bound=bound(nbytes))
         print(f"[3 K1] {str(dtype)[6:]}: {len(levels)} levels, "
               f"{plan.n_pairs} pairs, max|err| {err:.3e} "
               f"(max|pool| {scale:.3e}); one factor's extend-add: kernel "
@@ -288,12 +326,12 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     return launches
 
 
-def time_pair(kernel, plain, reps: int = 100):
+def time_pair(kernel, plain, reps: int = 100, queued: bool = True):
     """(kernel ms, plain ms): each warmed, then timed over ``reps``
     back-to-back launches in the order plain, kernel, kernel, plain."""
     kernel(), plain()
-    p1, k1 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
-    k2, p2 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+    p1, k1 = cuda_ms(plain, reps, queued), cuda_ms(kernel, reps, queued)
+    k2, p2 = cuda_ms(kernel, reps, queued), cuda_ms(plain, reps, queued)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -314,10 +352,17 @@ def spmv_cases(tag, M, kind, launch, plain, seed):
     x64 = np.random.default_rng(seed).standard_normal(M.width)
     A_sp = M.to_scipy().astype(np.float64)
     launches, out = 0, None
+    idx = torch.int32 if M.nnz < 2**31 else torch.int64
+    crow = torch.from_numpy(A_sp.indptr).to("cuda", idx)
+    ccol = torch.from_numpy(A_sp.indices).to("cuda", idx)
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         plan = host.to("cuda", dtype)
         x = torch.from_numpy(x64).to("cuda", dtype)
         part = plan.stencil if plan.stencil is not None else plan.gather
+        # the library's y = A·x: torch's CSR product (cuSPARSE)
+        csr = torch.sparse_csr_tensor(
+            crow, ccol, torch.from_numpy(A_sp.data).to("cuda", dtype),
+            size=A_sp.shape)
         launch.launches = 0
         y = plan.matvec(x)
         torch.cuda.synchronize()
@@ -335,17 +380,24 @@ def spmv_cases(tag, M, kind, launch, plain, seed):
               f"{tol:g}·max|y| ({scale:.3e})")
         check(host_err <= 10 * tol * scale,
               f"{tag} {dtype}: kernel vs scipy max|err| {host_err:.3e}")
+        lib_err = float((csr @ x - y).abs().max())
+        check(lib_err <= 10 * tol * scale, f"{tag} {dtype}: cuSPARSE vs "
+              f"kernel max|err| {lib_err:.3e}")
         ms, plain_ms = time_pair(lambda: launch(part, x),
                                  lambda: plain(part, x))
+        _, lib_ms = time_pair(lambda: launch(part, x), lambda: csr @ x)
         gbs = plan.stream_bytes / (ms * 1e-3) / 1e9
         print(f"{tag} {str(dtype)[6:]}: n={M.height} nnz={M.nnz}, "
               f"plan {t_plan:.2f} s (host); max|err| vs plain {err:.3e}, "
-              f"vs scipy {host_err:.3e} (max|y| {scale:.3e}); kernel "
-              f"{ms:.4f} ms ({gbs:.0f} GB/s of stream_bytes), plain "
-              f"{plain_ms:.4f} ms over 100 launches")
+              f"vs scipy {host_err:.3e}, vs cuSPARSE {lib_err:.3e} (max|y| "
+              f"{scale:.3e}); kernel {ms:.4f} ms ({gbs:.0f} GB/s of "
+              f"stream_bytes), plain {plain_ms:.4f} ms, cuSPARSE CSR "
+              f"{lib_ms:.4f} ms (kernel/cuSPARSE {ms / lib_ms:.2f}) over 100 "
+              f"launches")
         if dtype == torch.float32:
-            out = dict(err=err, ms=ms, plain_ms=plain_ms)
-        del plan, x, y, ref
+            out = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                       bound=bound(plan.stream_bytes))
+        del plan, x, y, ref, csr
     return launches, out
 
 
@@ -541,59 +593,121 @@ def phase_bridged(A, seed: int):
               f"of stream_bytes) vs plain path {plain_all:.4f} ms; bridged "
               f"{ms_b:.4f} ms vs K2 gather_csr {ms_k2:.4f} ms (over 100 "
               f"launches each)")
+        # the stream gather reads each slot's column and value and x once,
+        # and writes P; K7 reads P and LR and writes the float32 y
+        g_bytes = (bp.slots * (bp.cols_b.element_size()
+                               + bp.vals_b.element_size() + Pk.element_size())
+                   + A.width * x.element_size())
+        c_bytes = (bp.slots * (Pk.element_size() + bp.lr.element_size())
+                   + 4 * yk.numel())
         out[dtype] = dict(err=err, g_err=g_err, c_err=c_err, ms_g=ms_g,
-                          plain_g=plain_g, ms_c=ms_c, plain_c=plain_c)
+                          plain_g=plain_g, ms_c=ms_c, plain_c=plain_c,
+                          g_bound=bound(g_bytes), c_bound=bound(c_bytes))
         del plan, bp, x, y, P, Pk, yk, ck, ref, k2
     return launches, out[torch.float32]
 
 
 def phase_k4(seed: int):
-    """K4 at 4096³ (``bench.py``'s GEMM) in float32, bfloat16, float64.
-    cuBLAS, the plain version, runs without TF32 and with float32 sums for
-    bfloat16 (no reduced-precision reduction), as K4 does."""
+    """K4 at 4096³ (``bench.py``'s GEMM) in float32, bfloat16, float64
+    through the ffma, wgmma and dmma paths, at 3000×1000×2056 through the
+    same paths (ragged against every tile), and at 4096×4095×4096 float32
+    (off the 16-byte vectors: the SIMT path).  cuBLAS, the plain version,
+    runs without TF32 and with float32 sums for bfloat16 (no
+    reduced-precision reduction), as K4 does."""
     import torch
-    from elemental_tpu_torch.kernels.matmul import matmul, matmul_plain
+    from elemental_tpu_torch.kernels import matmul as mm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     n = 4096
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a64 = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
     b64 = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
-    # against max|C| of the float64 product of the same (rounded) inputs:
-    # float32 sums in float32 (TF32 would leave ~1e-3); bfloat16 rounds the
-    # output once (unit roundoff 2^-8) after float32 sums; float64 sums in
-    # float64
-    bounds = ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-8 + 1e-5),
-              (torch.float64, 1e-12))
-    launches, out = 0, {}
-    for dtype, bound in bounds:
-        a, b = a64.to(dtype), b64.to(dtype)
+    # gates against max|C| of the float64 product of the same (rounded)
+    # inputs: float32 sums in float32 (TF32 would leave ~1e-3); bfloat16
+    # rounds the output once (unit roundoff 2^-8) after float32 sums;
+    # float64 sums in float64
+    paths = ((torch.float32, "ffma", 1e-5), (torch.bfloat16, "wgmma",
+                                             2.0**-8 + 1e-5),
+             (torch.float64, "dmma", 1e-12))
+
+    def operands(m, k, nn, dtype):
+        return (a64[:m, :k].to(dtype).contiguous(),
+                b64[:k, :nn].to(dtype).contiguous())
+
+    cases = [(f"{n}^3", dtype, path, gate, *operands(n, n, n, dtype))
+             for dtype, path, gate in paths]
+    cases += [("3000x1000x2056", dtype, path, gate,
+               *operands(3000, 1000, 2056, dtype))
+              for dtype, path, gate in paths]
+    cases.append(("4096x4095x4096", torch.float32, "simt", 1e-5,
+                  *operands(n, n - 1, n, torch.float32)))
+
+    # the main path: each product once through the wrapper, each launch
+    # counted by its path
+    mm.matmul.launches = 0
+    mm.matmul.launches_by_path = dict.fromkeys(mm.PATHS, 0)
+    outs = []
+    for label, dtype, path, _, a, b in cases:
+        before = dict(mm.matmul.launches_by_path)
+        outs.append(mm.matmul(a, b))
+        check(mm.matmul.launches_by_path[path] - before[path] == 1
+              and mm.matmul.launches == len(outs),
+              f"K4 {label} {dtype}: not one launch of the {path} path "
+              f"({before} -> {mm.matmul.launches_by_path})")
+    torch.cuda.synchronize()
+    launches = dict(mm.matmul.launches_by_path)
+
+    out = {}
+    for (label, dtype, path, gate, a, b), c in zip(cases, outs):
+        m, k = a.shape
+        nn = b.shape[1]
+        check(c.dtype == dtype and c.shape == (m, nn),
+              f"K4 {label} {dtype}: C is {c.dtype} {tuple(c.shape)}")
         exact = a.double() @ b.double()
         scale = float(exact.abs().max())
-        matmul.launches = 0
-        c = matmul(a, b)
-        torch.cuda.synchronize()
-        check(matmul.launches == 1, f"K4 {dtype}: {matmul.launches} launches")
-        launches += matmul.launches
-        check(c.dtype == dtype and c.shape == (n, n),
-              f"K4 {dtype}: C is {c.dtype} {tuple(c.shape)}")
         err = float((c.double() - exact).abs().max())
-        check(err <= bound * scale, f"K4 {dtype}: max|err| vs the float64 "
-              f"product {err:.3e} > {bound:g}·max|C| ({scale:.3e})")
-        err_plain = float((c.double() - matmul_plain(a, b).double()).abs()
-                          .max())
-        ms, plain_ms = time_pair(lambda: matmul(a, b),
-                                 lambda: matmul_plain(a, b), reps=10)
-        flop = 2.0 * n ** 3
-        print(f"[11 K4] {n}^3 {str(dtype)[6:]}: max|err| vs float64 product "
-              f"{err:.3e} ({err / scale:.2e}·max|C|, bound {bound:g}), vs "
-              f"torch.matmul {err_plain:.3e}; kernel {ms:.3f} ms "
-              f"({flop / ms / 1e9:.2f} TFLOP/s), torch.matmul (cuBLAS) "
-              f"{plain_ms:.3f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s) over "
-              f"10 launches")
-        out[dtype] = dict(err=err_plain, ms=ms, plain_ms=plain_ms)
-        del a, b, c, exact
-    return launches, out[torch.float32]
+        check(err <= gate * scale, f"K4 {label} {dtype}: max|err| vs the "
+              f"float64 product {err:.3e} > {gate:g}·max|C| ({scale:.3e})")
+        lib = mm.matmul_plain(a, b).double()
+        err_lib = float((c.double() - lib).abs().max())
+        if label == f"{n}^3":
+            # the SIMT kernel on the same operands, held to the same gates
+            simt = mm._run_matmul(a, b, "simt").double()
+            simt_err = float((simt - exact).abs().max())
+            simt_err_lib = float((simt - lib).abs().max())
+            check(simt_err <= gate * scale, f"K4 {label} {dtype} simt: "
+                  f"max|err| vs the float64 product {simt_err:.3e} > "
+                  f"{gate:g}·max|C| ({scale:.3e})")
+            del simt
+        del exact, lib
+        ms, lib_ms = time_pair(lambda: mm._run_matmul(a, b, path),
+                               lambda: mm.matmul_plain(a, b), reps=10)
+        flop = 2.0 * m * k * nn
+        name = str(dtype)[6:]
+        b_ms, b_by = bound((m * k + k * nn + m * nn) * a.element_size(),
+                           flop, name)
+        line = (f"[11 K4] {label} {name} {path}: max|err| vs float64 "
+                f"product {err:.3e} ({err / scale:.2e}·max|C|, gate "
+                f"{gate:g}), vs cuBLAS {err_lib:.3e}; kernel {ms:.4f} ms "
+                f"({flop / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                f"{b_ms:.4f} ms bound), cuBLAS {lib_ms:.4f} ms "
+                f"({flop / lib_ms / 1e9:.1f} TFLOP/s), kernel/cuBLAS "
+                f"{ms / lib_ms:.2f} over 10 launches")
+        if label == f"{n}^3":
+            simt_ms = cuda_ms(lambda: mm._run_matmul(a, b, "simt"), 5)
+            line += (f"; the SIMT kernel: max|err| vs float64 product "
+                     f"{simt_err:.3e}, vs cuBLAS {simt_err_lib:.3e}, "
+                     f"{simt_ms:.3f} ms "
+                     f"({flop / simt_ms / 1e9:.1f} TFLOP/s, "
+                     f"{simt_ms / ms:.1f}x the {path} path's time)")
+            out[path] = dict(err=err_lib, ms=ms, plain_ms=lib_ms,
+                             bound=(b_ms, b_by))
+        elif path == "simt":
+            out[path] = dict(err=err_lib, ms=ms, plain_ms=lib_ms,
+                             bound=(b_ms, b_by))
+        print(line)
+    del cases, outs, a64, b64
+    return launches, out
 
 
 def bits(t):
@@ -644,7 +758,12 @@ def phase_k5(seed: int):
                   f"to c; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over "
                   f"20 launches")
             if out is None:
-                out = dict(err=err, ms=ms, plain_ms=plain_ms)
+                # c read and out written whole, a and b read once; the
+                # triangle's product is n(n+1)/2 dot products of length k
+                item = c.element_size()
+                out = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound(
+                    (2 * n * n + 2 * n * k) * item, k * n * (n + 1.0),
+                    str(dtype)[6:]))
         del c, a, b
     return launches, out
 
@@ -699,13 +818,19 @@ def phase_k6(seed: int):
                   f"(max|err| {err:.3e})")
             rule = "within eps·|terms|"
         ms, plain_ms = time_pair(kernel, plain, reps=20)
+        idle_ms, idle_plain_ms = time_pair(kernel, plain, reps=20,
+                                           queued=False)
         nbytes = moves * got.numel() * item
         print(f"[13 K6] {name} {tuple(got.shape)} f32: max|err| vs plain "
               f"{err:.3e} ({rule}); kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms "
-              f"({nbytes / plain_ms / 1e6:.0f} GB/s) over 20 launches")
+              f"({nbytes / ms / 1e6:.0f} GB/s), torch {plain_ms:.4f} ms "
+              f"({nbytes / plain_ms / 1e6:.0f} GB/s), kernel/torch "
+              f"{ms / plain_ms:.3f} over 20 launches; with the window "
+              f"opened on an idle card {idle_ms:.4f} / {idle_plain_ms:.4f} "
+              f"ms, kernel/torch {idle_ms / idle_plain_ms:.3f}")
         if name not in out:
-            out[name] = dict(err=err, ms=ms, plain_ms=plain_ms)
+            out[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             bound=bound(nbytes))
         del got, ref
     return launches, out
 
@@ -774,36 +899,47 @@ def main() -> int:
     print(f"[10-13] the bridged tier and the dense kernels took "
           f"{time.perf_counter() - t0:.1f} s (host planning included)")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    def entry(name, source, replaces, launches, r, ms="ms",
+              plain_ms="plain_ms", bound_key="bound", library_ms=None):
+        """One kernel's line: r holds its max|err| vs the plain version,
+        its and the plain version's ms, and its bound."""
+        bound_ms, bound_by = r[bound_key]
         return {"name": name, "route": "cuda",
                 "source": f"elemental_tpu_torch/csrc/{source}",
                 "replaces": f"elemental_tpu/kernels/{replaces}",
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "launches": launches, "max_abs_err": r.get("err"),
+                "ms": r[ms], "plain_ms": r[plain_ms], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
 
     ew_lines = {"axpy": 49, "scale": 56, "hadamard": 63, "fill": 70,
                 "copy": 84, "transpose": 91}
     r32 = k1[torch.float32]
+    # where the plain version is itself the one library call (index_add_,
+    # cuBLAS, torch's elementwise kernels), library_ms is its time
     print(json.dumps({"kernels": [
         entry("extend_add", "extend_add.cu", "extend_add.py:58", launches,
-              r32["err"], r32["ms"], r32["plain_ms"]),
+              r32, library_ms=r32["plain_ms"]),
         entry("stencil_spmv", "stencil_spmv.cu", "spmv.py:123", k3_launches,
-              k3["err"], k3["ms"], k3["plain_ms"]),
+              k3, library_ms=k3["lib_ms"]),
         entry("gather_spmv", "csr_spmv.cu", "unstructured.py:179",
-              k2_launches, k2["err"], k2["ms"], k2["plain_ms"]),
+              k2_launches, k2, library_ms=k2["lib_ms"]),
         entry("stream_gather", "bridged.cu", "unstructured.py:179",
-              br_launches["gather"], br["g_err"], br["ms_g"],
-              br["plain_g"]),
+              br_launches["gather"], dict(br, err=br["g_err"]), "ms_g",
+              "plain_g", "g_bound"),
         entry("onehot_combine_bucketed", "bridged.cu", "unstructured.py:287",
-              br_launches["combine"], br["c_err"], br["ms_c"],
-              br["plain_c"]),
-        entry("matmul", "matmul.cu", "matmul.py:32", k4_launches, k4["err"],
-              k4["ms"], k4["plain_ms"]),
+              br_launches["combine"], dict(br, err=br["c_err"]), "ms_c",
+              "plain_c", "c_bound", library_ms=br["plain_c"]),
+        *(entry(f"matmul_{path}", src, "matmul.py:32", k4_launches[path],
+                k4[path], library_ms=k4[path]["plain_ms"])
+          for path, src in (("wgmma", "matmul_sm90.cu"),
+                            ("dmma", "matmul_sm90.cu"),
+                            ("ffma", "matmul_sm90.cu"),
+                            ("simt", "matmul.cu"))),
         entry("masked_rank_k_update", "matmul.cu", "matmul.py:68",
-              k5_launches, k5["err"], k5["ms"], k5["plain_ms"]),
+              k5_launches, k5),
         *(entry(op, "elementwise.cu", f"elementwise.py:{line}",
-                k6_launches[op], k6[op]["err"], k6[op]["ms"],
-                k6[op]["plain_ms"]) for op, line in ew_lines.items())]}))
+                k6_launches[op], k6[op], library_ms=k6[op]["plain_ms"])
+          for op, line in ew_lines.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,19 +21,28 @@
 // it by one rounding of alpha * x.  copy, fill and transpose move bits and
 // are instantiated by element size (2, 4 or 8 bytes).
 //
-// Design: the streaming ops are grid-stride loops over 16-byte packs (4
-// float32, 2 float64 or 8 bfloat16 a thread a step) when every pointer is
-// 16-byte aligned, with a scalar loop over the tail; otherwise one element
-// a step.  The reference's _tile_grid cut the arrays into VMEM blocks and
-// has no counterpart.  transpose stages a 32 x 32 tile in shared memory with
-// one word of padding a row, so that both the load of a row of x and the
-// store of a row of out are coalesced and the column read of the tile is
-// free of bank conflicts; blocks of 32 x 8 threads walk the tiles
-// grid-stride.
+// Design: when every pointer is 16-byte aligned, the streaming ops run one
+// pass over 16-byte packs (4 float32, 2 float64 or 8 bfloat16): each thread
+// of a block of 128 loads one pack (of x and of y), computes and stores it;
+// the grid covers the tensor once (no grid-stride loop), and the last block
+// also takes the n % pack elements of the tail.  Otherwise a grid-stride
+// loop of one element a step.  The reference's _tile_grid cut the arrays
+// into VMEM blocks and has no counterpart.  transpose stages a 32 x 32
+// tile in shared memory with one word of padding a row, so that both the
+// load of a row of x and the store of a row of out are coalesced and the
+// column read of the tile is free of bank conflicts; blocks of 32 x 8
+// threads walk the tiles grid-stride.
 //
 // What bounds them: bytes.  Each op reads and writes every element once
 // (axpy and hadamard read two inputs, fill reads none), so at 3.35 TB/s an
-// 8192 x 8192 float32 axpy (805 MB) takes at least 0.24 ms.
+// 8192 x 8192 float32 axpy (805 MB) takes at least 0.24 ms.  What the
+// design does about it is keep enough loads in flight with few
+// instructions: a grid-stride loop over a grid capped at 132 x 16 blocks
+// fell behind torch's own kernels, where a grid that covers the tensor once
+// keeps pace with them.  On the H100, two or four packs a thread (loads
+// first, then arithmetic and stores) and evict-first loads and stores
+// (__ldcs, __stcs) were no faster than one pack a thread, so they are not
+// used.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (elemental_tpu_torch/_build.py), loaded with ctypes.
@@ -46,7 +55,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // the scalar grid-stride loop
+constexpr int kPackThreads = 128;       // one 16-byte pack a thread
 constexpr int64_t kMaxBlocks = 132 * 16;
 constexpr int kTile = 32, kRowsPerStep = 8;
 
@@ -110,37 +120,65 @@ struct alignas(16) Pack {
   T v[kN];
 };
 
+// pack i of p as one 128-bit load or store
+template <typename T>
+__device__ __forceinline__ Pack<T> load_pack(const T* p, int64_t i) {
+  Pack<T> r;
+  *reinterpret_cast<uint4*>(&r) = reinterpret_cast<const uint4*>(p)[i];
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pack(T* p, int64_t i,
+                                           const Pack<T>& v) {
+  reinterpret_cast<uint4*>(p)[i] = *reinterpret_cast<const uint4*>(&v);
+}
+
 // x and y are read only where the op has them; T is the element type, or
 // for copy and fill an unsigned integer of the element's size
-template <typename T, int OP, bool VEC>
+template <typename T, int OP>
+__global__ void __launch_bounds__(kPackThreads)
+stream_pack_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                   T* __restrict__ out, int64_t n, double alpha,
+                   T fill_value) {
+  constexpr bool kReadsX = OP != kFill;
+  constexpr bool kReadsY = OP == kAxpy || OP == kHadamard;
+  using M = typename MathOf<T>::type;
+  using P = Pack<T>;
+  const M a = static_cast<M>(alpha);
+  const int64_t packs = n / P::kN;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPackThreads
+                    + threadIdx.x;
+  if (i < packs) {
+    P xp, yp, op;
+    if constexpr (kReadsX) xp = load_pack(x, i);
+    if constexpr (kReadsY) yp = load_pack(y, i);
+#pragma unroll
+    for (int e = 0; e < P::kN; ++e)
+      op.v[e] = apply<T, OP>(kReadsX ? xp.v[e] : fill_value,
+                             kReadsY ? yp.v[e] : fill_value, a, fill_value);
+    store_pack(out, i, op);
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const int64_t i = packs * P::kN + threadIdx.x;
+    if (i < n)
+      out[i] = apply<T, OP>(kReadsX ? x[i] : fill_value,
+                            kReadsY ? y[i] : fill_value, a, fill_value);
+  }
+}
+
+template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-stream_kernel(const T* __restrict__ x, const T* __restrict__ y,
-              T* __restrict__ out, int64_t n, double alpha, T fill_value) {
+stream_scalar_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                     T* __restrict__ out, int64_t n, double alpha,
+                     T fill_value) {
   constexpr bool kReadsX = OP != kFill;
   constexpr bool kReadsY = OP == kAxpy || OP == kHadamard;
   using M = typename MathOf<T>::type;
   const M a = static_cast<M>(alpha);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  int64_t done = 0;
-  if constexpr (VEC) {
-    using P = Pack<T>;
-    const int64_t packs = n / P::kN;
-    for (int64_t i = tid; i < packs; i += stride) {
-      P xp, yp, op;
-      if constexpr (kReadsX) xp = reinterpret_cast<const P*>(x)[i];
-      if constexpr (kReadsY) yp = reinterpret_cast<const P*>(y)[i];
-#pragma unroll
-      for (int e = 0; e < P::kN; ++e)
-        op.v[e] = apply<T, OP>(kReadsX ? xp.v[e] : fill_value,
-                               kReadsY ? yp.v[e] : fill_value, a,
-                               fill_value);
-      reinterpret_cast<P*>(out)[i] = op;
-    }
-    done = packs * P::kN;
-  }
-  for (int64_t i = done + tid; i < n; i += stride)
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                   + threadIdx.x; i < n; i += stride)
     out[i] = apply<T, OP>(kReadsX ? x[i] : fill_value,
                           kReadsY ? y[i] : fill_value, a, fill_value);
 }
@@ -149,20 +187,22 @@ template <typename T, int OP>
 int stream_op(const void* x, const void* y, void* out, int64_t n,
               double alpha, T fill_value, int64_t vec, void* stream) {
   if (n <= 0) return 0;
-  const int64_t per = vec ? Pack<T>::kN : 1;
-  int64_t blocks = (n / per + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
   T* ot = static_cast<T*>(out);
-  if (vec)
-    stream_kernel<T, OP, true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 s>>>(xt, yt, ot, n, alpha, fill_value);
-  else
-    stream_kernel<T, OP, false><<<static_cast<unsigned>(blocks), kThreads,
+  if (vec) {
+    int64_t blocks = (n / Pack<T>::kN + kPackThreads - 1) / kPackThreads;
+    if (blocks < 1) blocks = 1;
+    if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    stream_pack_kernel<T, OP><<<static_cast<unsigned>(blocks), kPackThreads,
+                                0, s>>>(xt, yt, ot, n, alpha, fill_value);
+  } else {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    stream_scalar_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads,
                                   0, s>>>(xt, yt, ot, n, alpha, fill_value);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,6 +3,10 @@
 //
 // Replaces the TPU kernels elemental_tpu/kernels/matmul.py:matmul
 // (_matmul_kernel, K4) and masked_rank_k_update (its inner kernel, K5).
+// K4 runs here only for the shapes that the Hopper kernels of
+// matmul_sm90.cu cannot take (k or n off a 16-byte vector, data off 16-byte
+// alignment: elemental_tpu_torch/kernels/matmul.py, _matmul_path); K5
+// always runs here.
 //
 // What they compute, for a (m, k), b (k, n), c and out (m, n), all
 // row-major and contiguous:
@@ -31,17 +35,18 @@
 // blocks; they have no counterpart here.
 //
 // Precision: float32 is true float32, one FFMA per term, never TF32.  Hopper's
-// tensor cores take float32 only as TF32, so a later wgmma redesign can keep
-// float32 accuracy only through a split scheme (three bf16 or TF32 passes).
-// float64 sums in float64 (the reference summed float64 in float32, as the
-// MXU has no float64).
+// tensor cores take float32 only as TF32, so a tensor-core float32 product
+// could keep float32 accuracy only through a split scheme (three bf16 or
+// TF32 passes).  float64 sums in float64 (the reference summed float64 in
+// float32, as the MXU has no float64).
 //
 // What bounds it: arithmetic.  At 4096^3 the product is 137 GFLOP against
 // 402 MB of operands, far above the card's balance point, so the time is
 // the FFMA/DFMA rate of the CUDA cores (67 TFLOP/s float32 and 34 float64
 // on the H100 SXM without tensor cores) times how well this kernel feeds
-// them from shared memory; no cp.async, TMA, double buffering or tensor
-// cores yet.  bfloat16 runs at the float32 rate here.
+// them from shared memory; it has no cp.async, TMA, double buffering or
+// tensor cores (matmul_sm90.cu has them).  bfloat16 runs at the float32
+// rate here.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (elemental_tpu_torch/_build.py), loaded with ctypes.

@@ -1,6 +1,6 @@
-"""K4 and K5: the tiled matrix product and the masked rank-k update (the
-Cholesky/LDL trailing-update shape, ``Trrk``), as one hand-written CUDA
-kernel template (``csrc/matmul.cu``), and their plain PyTorch versions.
+"""K4 and K5: the matrix product and the masked rank-k update (the
+Cholesky/LDL trailing-update shape, ``Trrk``), as hand-written CUDA kernels,
+and their plain PyTorch versions.
 
 Replaces the TPU kernels ``elemental_tpu/kernels/matmul.py:matmul`` and
 ``masked_rank_k_update``.  The reference's ``tile_m/n/k`` arguments and
@@ -9,11 +9,28 @@ and bfloat16 sum in float32 and float64 in float64 (the reference summed
 float64 in float32, for want of a float64 MXU); float32 is true float32,
 never TF32.
 
-The kernel is built with ``nvcc`` for sm_90a at first use (``_build.py``)
-and loaded with ctypes; it launches on the current CUDA stream and allocates
-nothing but its output.  Each wrapper takes the plain version only for
-tensors on the CPU.  For CUDA tensors it launches the kernel or raises:
-nothing falls back.
+K4 has four kernels, and :func:`_matmul_path` picks one by a fixed rule of
+dtype, shape and alignment (never on a failure: a refused launch raises):
+
+* ``"wgmma"`` (bfloat16, ``csrc/matmul_sm90.cu``): tensor cores through
+  wgmma, fed by TMA;
+* ``"dmma"`` (float64, ``csrc/matmul_sm90.cu``): the float64 tensor cores
+  through mma.sync, fed by cp.async;
+* ``"ffma"`` (float32, ``csrc/matmul_sm90.cu``): an FFMA tile fed by
+  double-buffered shared memory;
+* ``"simt"`` (any of the three, ``csrc/matmul.cu``): the first port's
+  shared-memory tile, for the shapes the others cannot take.
+
+The first three load 16-byte vectors of rows (TMA boxes or cp.async), so
+they need k > 0, k and n multiples of one 16-byte vector (8 bfloat16, 4
+float32, 2 float64) and 16-byte aligned data; every other shape takes
+``"simt"``.  K5 stays on the SIMT template of ``csrc/matmul.cu``.
+
+The kernels are built with ``nvcc`` for sm_90a at first use
+(``_build.py``) and loaded with ctypes; they launch on the current CUDA
+stream and allocate nothing but their output.  Each wrapper takes the plain
+version only for tensors on the CPU.  For CUDA tensors it launches a kernel
+or raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ import torch
 from .._build import CSRC_DIR, build_cuda_library
 
 SOURCE = os.path.join(CSRC_DIR, "matmul.cu")
+SOURCE_SM90 = os.path.join(CSRC_DIR, "matmul_sm90.cu")
 
 _MATMUL_FNS = {torch.float32: "el_matmul_f32", torch.float64: "el_matmul_f64",
                torch.bfloat16: "el_matmul_bf16"}
@@ -36,16 +54,28 @@ _RANK_K_FNS = {
     (torch.float32, False): "el_rank_k_upper_f32",
     (torch.float64, False): "el_rank_k_upper_f64",
 }
-# the kernel's output tile is 128 x 128 and its grid holds at most 65535
-# row tiles
+# the K4 paths of csrc/matmul_sm90.cu, by dtype, and the elements in one
+# 16-byte vector of a row
+_SM90_PATHS = {torch.bfloat16: ("wgmma", "el_matmul_wgmma_bf16", 8),
+               torch.float32: ("ffma", "el_matmul_ffma_f32", 4),
+               torch.float64: ("dmma", "el_matmul_dmma_f64", 2)}
+PATHS = ("wgmma", "dmma", "ffma", "simt")
+# every kernel's output tile is 128 rows high and its grid holds at most
+# 65535 row tiles
 TILE = 128
 MAX_ROWS = 65535 * TILE
 
 
 def build() -> str:
-    """Compile the kernels (if their library is not built yet); returns the
-    library's path."""
+    """Compile the SIMT kernels of K4 and K5 (if their library is not built
+    yet); returns the library's path."""
     return build_cuda_library("matmul", [SOURCE])
+
+
+def build_sm90() -> str:
+    """Compile K4's wgmma, dmma and ffma kernels (if their library is not
+    built yet); returns the library's path."""
+    return build_cuda_library("matmul_sm90", [SOURCE_SM90])
 
 
 @functools.cache
@@ -55,6 +85,17 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
             ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_sm90() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_sm90())
+    for _, name, _ in _SM90_PATHS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -75,17 +116,16 @@ def _check_shapes(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)} do not multiply")
 
 
-def _launch(name: str, fn_name: str, a, b, c, out, alpha: float) -> None:
-    m, k = a.shape
-    n = b.shape[1]
-    if m > MAX_ROWS:
-        raise ValueError(f"{name}: {m} rows exceed the kernel's grid "
-                         f"({MAX_ROWS})")
-    fn = getattr(_lib(), fn_name)
+def _launch(name: str, fn, a, b, *args) -> None:
+    """Call the C entry ``fn`` with a, b, ``args`` and the current stream;
+    raise if the launch was refused (CUDA error code, or -1/-2 when the
+    driver's TMA encoder is missing or refuses a descriptor)."""
+    if a.shape[0] > MAX_ROWS:
+        raise ValueError(f"{name}: {a.shape[0]} rows exceed the kernel's "
+                         f"grid ({MAX_ROWS})")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                m, n, k, float(alpha), stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -97,25 +137,63 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def _matmul_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The K4 kernel that multiplies a (m, k) by b (k, n): ``"wgmma"``
+    (bfloat16), ``"dmma"`` (float64) or ``"ffma"`` (float32) when k > 0, k
+    and n are multiples of the dtype's 16-byte vector (8, 2, 4 elements)
+    and both data pointers are 16-byte aligned; ``"simt"`` otherwise, and
+    for any other dtype.  A pure function of dtype, shape and alignment."""
+    path = _SM90_PATHS.get(a.dtype)
+    k, n = a.shape[1], b.shape[1]
+    if path is None or b.dtype != a.dtype or k == 0:
+        return "simt"
+    vec = path[2]
+    if k % vec or n % vec or a.data_ptr() % 16 or b.data_ptr() % 16:
+        return "simt"
+    return path[0]
+
+
+def _run_matmul(a: torch.Tensor, b: torch.Tensor, path: str) -> torch.Tensor:
+    """Launch K4's ``path`` kernel on contiguous CUDA a, b; no counting.
+    Raises if ``path`` cannot take these operands."""
+    if path not in ("simt", _matmul_path(a, b)):
+        raise ValueError(f"matmul: path {path!r} cannot take {a.dtype} "
+                         f"{tuple(a.shape)}·{tuple(b.shape)} (the rule "
+                         f"gives {_matmul_path(a, b)!r})")
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    if path == "simt":
+        _launch("matmul", getattr(_lib(), _MATMUL_FNS[a.dtype]), a, b,
+                out.data_ptr(), out.data_ptr(), m, n, k, 1.0)
+    else:
+        _launch("matmul", getattr(_lib_sm90(), _SM90_PATHS[a.dtype][1]), a,
+                b, out.data_ptr(), m, n, k)
+    return out
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K4: C = A·B for any (m, k)·(k, n), in a's dtype (float32, bfloat16
     or float64; float32 sums for the first two, float64 for the last).
 
-    CPU tensors: the plain version.  CUDA tensors: the K4 kernel, or an
-    exception.  ``matmul.launches`` counts kernel launches."""
+    CPU tensors: the plain version.  CUDA tensors: the K4 kernel that
+    :func:`_matmul_path` names, or an exception.  ``matmul.launches``
+    counts kernel launches, ``matmul.launches_by_path`` them by path."""
     _check_shapes("matmul", a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_plain(a, b)
     _check("matmul", _MATMUL_FNS, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"matmul: no kernel for device {a.device}")
-    out = torch.empty(a.shape[0], b.shape[1], dtype=a.dtype, device=a.device)
-    _launch("matmul", _MATMUL_FNS[a.dtype], a, b, out, out, 1.0)
+    path = _matmul_path(a, b)
+    out = _run_matmul(a, b, path)
     matmul.launches += 1
+    matmul.launches_by_path[path] += 1
     return out
 
 
 matmul.launches = 0
+matmul.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def _mask(c: torch.Tensor, lower: bool) -> torch.Tensor:
@@ -154,8 +232,10 @@ def masked_rank_k_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"masked_rank_k_update: no kernel for device "
                          f"{c.device}")
     out = torch.empty_like(c)
-    _launch("masked_rank_k_update", _RANK_K_FNS[(c.dtype, bool(lower))],
-            a, b, c, out, alpha)
+    m, k = a.shape
+    _launch("masked_rank_k_update",
+            getattr(_lib(), _RANK_K_FNS[(c.dtype, bool(lower))]), a, b,
+            c.data_ptr(), out.data_ptr(), m, b.shape[1], k, float(alpha))
     masked_rank_k_update.launches += 1
     return out
 

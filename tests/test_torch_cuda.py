@@ -18,7 +18,8 @@ import torch
 from elemental_tpu_torch.kernels import elementwise as ew
 from elemental_tpu_torch.kernels.extend_add import (extend_add,
                                                     extend_add_plain)
-from elemental_tpu_torch.kernels.matmul import (masked_rank_k_update,
+from elemental_tpu_torch.kernels.matmul import (_matmul_path, _run_matmul,
+                                                masked_rank_k_update,
                                                 masked_rank_k_update_plain,
                                                 matmul, matmul_plain)
 from elemental_tpu_torch.kernels.spmv import (stencil_spmv,
@@ -433,6 +434,115 @@ def test_matmul_kernel_matches_plain(cuda, no_tf32, dtype, shape):
         (2.0**-8 + 1e-5 if dtype == torch.bfloat16 else MM_TOL[dtype]) * scale
 
 
+# K4's Hopper paths.  Shapes (m, k, n) for each: one whole block tile
+# (wgmma 128 x 256 with k = 64, dmma and ffma 128 x 128 with k = 16); m, k
+# and n ragged against every tile; k under one k-step; k one 16-byte vector
+# (8, 2 or 4 elements); a long k for the accumulation.
+MM_PATHS = {"wgmma": (torch.bfloat16, 8, (128, 64, 256)),
+            "dmma": (torch.float64, 2, (128, 16, 128)),
+            "ffma": (torch.float32, 4, (128, 16, 128))}
+MM_PATH_CASES = ["full_tile", "ragged", "k_under_step", "k_one_vector",
+                 "long_k"]
+
+
+def _path_shape(path, case):
+    _, vec, full = MM_PATHS[path]
+    return {"full_tile": full, "ragged": (197, 1000, 264),
+            "k_under_step": (130, 8, 136), "k_one_vector": (70, vec, 72),
+            "long_k": (128, 4096, 256)}[case]
+
+
+def _gate(dtype):
+    """max|C − A·B| over max|C| against the float64 product: f32 sums
+    (1e-5), one bfloat16 rounding of the output (2⁻⁸ + 1e-5), f64 sums
+    (1e-12)."""
+    return {torch.float32: 1e-5, torch.bfloat16: 2.0**-8 + 1e-5,
+            torch.float64: 1e-12}[dtype]
+
+
+@pytest.mark.parametrize("case", MM_PATH_CASES)
+@pytest.mark.parametrize("path", sorted(MM_PATHS))
+def test_matmul_paths_match_float64(cuda, no_tf32, path, case):
+    dtype = MM_PATHS[path][0]
+    m, k, n = _path_shape(path, case)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    b = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    assert _matmul_path(a, b) == path
+    before = dict(matmul.launches_by_path)
+    c = matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.launches_by_path[path] - before[path] == 1
+    assert sum(matmul.launches_by_path.values()) - sum(before.values()) == 1
+    assert c.dtype == dtype and c.shape == (m, n)
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    assert float((c.double() - exact).abs().max()) <= _gate(dtype) * scale
+    ref = matmul_plain(a, b)
+    assert float((c.double() - ref.double()).abs().max()) <= \
+        MM_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("path", sorted(MM_PATHS))
+def test_matmul_paths_identity_shows_layout(cuda, path):
+    """I·B = B and A·I = A exactly (one product a sum): a wrong shared-
+    memory layout or descriptor moves or mixes entries."""
+    dtype = MM_PATHS[path][0]
+    n = 256
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(n, n, generator=g, device=cuda).to(dtype)
+    eye = torch.eye(n, device=cuda, dtype=dtype)
+    for a, b, want in ((eye, x, x), (x, eye, x)):
+        assert _matmul_path(a, b) == path
+        assert torch.equal(_run_matmul(a, b, path), want)
+    # a permutation on the left reorders B's rows exactly
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(6))
+    p = eye[perm.to(cuda)]
+    assert torch.equal(_run_matmul(p, x, path), x[perm.to(cuda)])
+
+
+@pytest.mark.parametrize("dtype", sorted(MM_TOL, key=str))
+def test_matmul_simt_route_by_rule(cuda, no_tf32, dtype):
+    """Shapes off the 16-byte vectors and misaligned data take the SIMT
+    kernel, by the rule and its counter, and stay within the gates."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    flat = torch.randn(40 * 33 + 1, generator=g, device=cuda).to(dtype)
+    cases = [(torch.randn(33, 31, generator=g, device=cuda).to(dtype),
+              torch.randn(31, 70, generator=g, device=cuda).to(dtype)),
+             (torch.randn(9, 1, generator=g, device=cuda).to(dtype),
+              torch.randn(1, 16, generator=g, device=cuda).to(dtype)),
+             (flat[1:].view(33, 40),              # base off 16 bytes
+              torch.randn(40, 64, generator=g, device=cuda).to(dtype))]
+    for a, b in cases:
+        assert _matmul_path(a, b) == "simt"
+        before = matmul.launches_by_path["simt"]
+        c = matmul(a, b)
+        torch.cuda.synchronize()
+        assert matmul.launches_by_path["simt"] - before == 1
+        exact = a.double() @ b.double()
+        scale = float(exact.abs().max())
+        assert float((c.double() - exact).abs().max()) <= \
+            _gate(dtype) * scale
+
+
+def test_matmul_paths_refuse_what_they_cannot_take(cuda):
+    a = torch.randn(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a.t(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a, a[:, ::2])
+    for path, (dtype, vec, _) in MM_PATHS.items():
+        flat = torch.zeros(64 * 64 + 1, device=cuda, dtype=dtype)
+        mis = flat[1:].view(64, 64)               # base off 16 bytes
+        ok = torch.zeros(64, 64, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="cannot take"):
+            _run_matmul(mis, ok, path)
+        with pytest.raises(ValueError, match="cannot take"):
+            _run_matmul(torch.zeros(8, vec + 1, device=cuda, dtype=dtype),
+                        torch.zeros(vec + 1, 64, device=cuda, dtype=dtype),
+                        path)
+
+
 @pytest.mark.parametrize("shape", [(96, 40, 72), (300, 17, 200),
                                    (200, 64, 300)])
 @pytest.mark.parametrize("lower", [True, False])
@@ -500,7 +610,10 @@ def _ew_case(op, x, y, dtype, plain):
 
 
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("shape", [(24, 200), (1, 1), (37, 5), (512, 1000)])
+# (3, 1367) and (1025, 9): many blocks of 128 packs in every dtype, ending
+# in a part-block and a tail under one pack
+@pytest.mark.parametrize("shape", [(24, 200), (1, 1), (37, 5), (512, 1000),
+                                   (3, 1367), (1025, 9)])
 @pytest.mark.parametrize("dtype", EW_DTYPES)
 @pytest.mark.parametrize("op", ["axpy", "scale", "hadamard", "copy", "fill",
                                 "transpose"])

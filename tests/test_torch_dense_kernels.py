@@ -19,7 +19,9 @@ from elemental_tpu.kernels import elementwise as jax_ew
 from elemental_tpu.kernels import matmul as jax_mm
 
 from elemental_tpu_torch.kernels import elementwise as ew
-from elemental_tpu_torch.kernels.matmul import masked_rank_k_update, matmul
+from elemental_tpu_torch.kernels.matmul import (_matmul_path,
+                                                masked_rank_k_update, matmul,
+                                                matmul_plain)
 
 torch.set_num_threads(1)
 
@@ -59,7 +61,8 @@ MATMUL_TOL = {"float32": (1e-5, 1e-5), "float64": (1e-5, 1e-12),
               "bfloat16": (2.0**-7, 2.0**-8 + 1e-5)}
 
 
-@pytest.mark.parametrize("shape", [(96, 40, 72), (64, 32, 64)])
+@pytest.mark.parametrize("shape", [(96, 40, 72), (64, 32, 64), (1, 1, 1),
+                                   (130, 257, 129)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_matmul_matches_pallas(dtype, shape):
     m, k, n = shape
@@ -73,6 +76,51 @@ def test_matmul_matches_pallas(dtype, shape):
     tol_ref, tol_exact = MATMUL_TOL[dtype]
     assert np.abs(_f64(ct) - _f64(cj)).max() <= tol_ref * scale
     assert np.abs(_f64(ct) - exact).max() <= tol_exact * scale
+
+
+# K4's route on the card: ``_matmul_path`` is a pure function of dtype,
+# shape and alignment.  The Hopper paths load 16-byte vectors of rows, so
+# they take k > 0 with k and n multiples of the dtype's vector and 16-byte
+# aligned data; everything else goes to the SIMT kernel.
+PATH_OF = {"bfloat16": ("wgmma", 8), "float32": ("ffma", 4),
+           "float64": ("dmma", 2)}
+RULE_SHAPES = [(1, 1, 1), (130, 257, 129), (96, 40, 72), (256, 128, 384),
+               (70, 2, 72), (9, 0, 16), (3000, 1000, 2056)]
+
+
+@pytest.mark.parametrize("shape", RULE_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matmul_path_rule(dtype, aligned, shape):
+    m, k, n = shape
+    tdt = DTYPES[dtype][1]
+    off = 0 if aligned else 1
+    a = torch.zeros(m * k + off, dtype=tdt)[off:].view(m, k)
+    b = torch.zeros(k * n, dtype=tdt).view(k, n)
+    path, vec = PATH_OF[dtype]
+    fits = aligned and k > 0 and k % vec == 0 and n % vec == 0
+    assert _matmul_path(a, b) == (path if fits else "simt")
+    # the same rule for b's alignment
+    b_off = torch.zeros(k * n + 1, dtype=tdt)[1:].view(k, n)
+    if k * n:
+        assert _matmul_path(a, b_off) == "simt"
+
+
+def test_matmul_path_rule_other_dtypes():
+    a = torch.zeros(64, 64, dtype=torch.float16)
+    assert _matmul_path(a, a) == "simt"
+    assert _matmul_path(a.float(), a.double()) == "simt"
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matmul_on_the_cpu_is_the_plain_version(dtype):
+    """CPU tensors take the plain version and count no launch, whatever
+    path the rule names for them."""
+    (_, at), (_, bt) = _inputs(dtype, (130, 64), (64, 136), seed=3)
+    before = (matmul.launches, dict(matmul.launches_by_path))
+    out = matmul(at, bt)
+    assert (matmul.launches, matmul.launches_by_path) == before
+    assert torch.equal(out, matmul_plain(at, bt))
 
 
 # K5 ------------------------------------------------------------------------
@@ -151,6 +199,42 @@ def test_elementwise_matches_pallas(op, dtype):
             "hadamard": np.abs(x * y)}[op]
     eps = np.finfo(DTYPES[dtype][0]).eps
     assert np.all(np.abs(got - ref) <= eps * size)
+
+
+# sizes off whole 16-byte packs, float64: the wrappers on CPU tensors (their
+# plain versions) against the Pallas kernels in interpret mode; the card's
+# kernels at such sizes are tested in test_torch_cuda.py
+@pytest.mark.parametrize("shape", [(3, 1367), (1025, 9)])
+@pytest.mark.parametrize("op", EW_OPS)
+def test_elementwise_sizes_match_pallas(op, shape):
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(shape))
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(shape))
+    with pltpu.force_tpu_interpret_mode():
+        rj = {"axpy": lambda: jax_ew.axpy(1.7, jnp.asarray(x.numpy()),
+                                          jnp.asarray(y.numpy())),
+              "scale": lambda: jax_ew.scale(-0.3, jnp.asarray(x.numpy())),
+              "hadamard": lambda: jax_ew.hadamard(jnp.asarray(x.numpy()),
+                                                  jnp.asarray(y.numpy())),
+              "copy": lambda: jax_ew.copy(jnp.asarray(x.numpy())),
+              "transpose": lambda: jax_ew.transpose(jnp.asarray(x.numpy())),
+              "fill": lambda: jax_ew.fill(shape, 1.1, np.float64)}[op]()
+    before = getattr(ew, op).launches
+    rt = {"axpy": lambda: ew.axpy(1.7, x, y),
+          "scale": lambda: ew.scale(-0.3, x),
+          "hadamard": lambda: ew.hadamard(x, y), "copy": lambda: ew.copy(x),
+          "transpose": lambda: ew.transpose(x),
+          "fill": lambda: ew.fill(shape, 1.1, torch.float64,
+                                  device="cpu")}[op]()
+    assert getattr(ew, op).launches == before     # CPU: the plain version
+    got, ref = rt.numpy(), np.asarray(rj)
+    assert got.shape == ref.shape
+    if op in ("copy", "fill", "transpose"):
+        np.testing.assert_array_equal(got, ref)
+        return
+    xn, yn = x.numpy(), y.numpy()
+    size = {"axpy": np.abs(yn) + np.abs(1.7 * xn), "scale": np.abs(0.3 * xn),
+            "hadamard": np.abs(xn * yn)}[op]
+    assert np.all(np.abs(got - ref) <= np.finfo(np.float64).eps * size)
 
 
 @pytest.mark.parametrize("shape", [(24, 200), (200, 24), (1, 7), (64, 128)])
