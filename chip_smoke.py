@@ -14,7 +14,9 @@ Phases, each printing at least one line and each fatal when it fails:
    together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
    plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
-   with the time of one whole factor's extend-add for both;
+   two kernel runs bit-equal, with the time of one whole factor's
+   extend-add for both: issued from the host level by level, and replayed
+   as a CUDA graph (device time); the host's µs a call; the values bound;
 4. sparse LDL of the 24³ Laplacian in float32, SPD and LDL kernels: solve
    residual under the dtype's bound, K1 launched;
 5. the LP at full size: ``lp_direct`` for ``--max-iters`` iterations in
@@ -31,7 +33,9 @@ Phases, each printing at least one line and each fatal when it fails:
    6) planned and multiplied through the permutation boundary, against
    scipy;
 8. K2: the uniform-random CSR (n = 2²⁰, 10 entries a row) planned on the
-   card (kind 'gather_csr'), as phase 6;
+   card (kind 'gather_csr'), as phase 6; then a matrix of skewed rows (n =
+   2²⁰, power-law lengths: empty rows and rows of 10⁴ entries or more)
+   the same way, its time printed, not gated;
 9. CG on the unscaled 1024² Laplacian in float32 (tol 1e-6) through the
    stencil plan: iterations, residuals, seconds per iteration, K3 launches;
 10. the bridged tier: ``plan_spmv(kind='bridged')`` of phase 8's matrix, one
@@ -161,21 +165,59 @@ def phase_build():
     print(f"[2 build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds of one replay of a CUDA graph captured around
+    ``fn()``: the device time of its kernels, without the host's cost of
+    issuing them one by one."""
+    import torch
+    fn()                                    # warm outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, reps)
+
+
+def host_us(fn, calls: int, reps: int = 3) -> float:
+    """Host microseconds a call when ``fn()`` issues ``calls`` calls (no
+    synchronisation inside the window; the least of ``reps`` windows)."""
+    import torch
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
 def phase_k1(kkt, seed: int):
-    """K1 against ``index_add_`` on every level of the KKT plan."""
+    """K1 against ``index_add_`` on every level of the KKT plan: issued
+    from the host as the factor issues it, and replayed as a CUDA graph
+    (device time)."""
     import torch
     from elemental_tpu_torch.kernels.extend_add import (extend_add,
                                                         extend_add_plain)
     plan = kkt.ea_plan
     levels = [plan.levels[li] for li in sorted(plan.levels)]
+    runs = sum(lv.n_runs for lv in levels)
+    dests = sum(lv.n_dest for lv in levels)
+    print(f"[3 K1] plan: {len(levels)} levels, {plan.n_pairs} pairs, "
+          f"{dests} destinations, {runs} runs "
+          f"({sum(lv.n_run_pairs for lv in levels)} pairs, "
+          f"{sum(lv.n_run_pairs for lv in levels) / max(runs, 1):.1f} a "
+          f"run), {sum(lv.n_multi for lv in levels)} destinations with two "
+          f"sources or more")
     out = {}
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         g = torch.Generator(device="cuda").manual_seed(seed)
         pool0 = torch.rand(plan.pool_size, generator=g, device="cuda",
                            dtype=dtype)
-        pk, pp = pool0.clone(), pool0.clone()
+        pk, pk2, pp = pool0.clone(), pool0.clone(), pool0.clone()
         for lv in levels:
             extend_add(pk, lv)
+            extend_add(pk2, lv)
             extend_add_plain(pp, lv)
         torch.cuda.synchronize()
         err = float((pk - pp).abs().max())
@@ -183,6 +225,8 @@ def phase_k1(kkt, seed: int):
         check(err <= rtol * scale,
               f"K1 {dtype} max|err| {err:.3e} > {rtol:g}·max|pool| "
               f"({scale:.3e})")
+        check(torch.equal(pk, pk2), f"K1 {dtype}: two runs differ")
+        del pk2
 
         def run_kernel():
             for lv in levels:
@@ -192,22 +236,44 @@ def phase_k1(kkt, seed: int):
             for lv in levels:
                 extend_add_plain(pp, lv)
 
-        run_kernel(), run_plain()                  # warm
-        p1 = cuda_ms(run_plain, 5)
-        k1 = cuda_ms(run_kernel, 5)
-        k2 = cuda_ms(run_kernel, 5)
-        p2 = cuda_ms(run_plain, 5)
-        # each pair reads its source index and value, each destination
-        # its index and two offsets and updates its value
-        idx, item = levels[0].src.element_size(), pk.element_size()
-        nbytes = sum(lv.n_pairs * (idx + item) + (lv.n_udst + 1) * idx
-                     + lv.n_udst * (idx + 2 * item) for lv in levels)
-        out[dtype] = dict(err=err, scale=scale, ms=(k1 + k2) / 2,
-                          plain_ms=(p1 + p2) / 2, bound=bound(nbytes))
-        print(f"[3 K1] {str(dtype)[6:]}: {len(levels)} levels, "
-              f"{plan.n_pairs} pairs, max|err| {err:.3e} "
-              f"(max|pool| {scale:.3e}); one factor's extend-add: kernel "
-              f"{(k1 + k2) / 2:.3f} ms, index_add_ {(p1 + p2) / 2:.3f} ms")
+        ms, plain_ms = time_pair(run_kernel, run_plain, reps=5)
+        g_ms = graph_ms(run_kernel)
+        try:
+            g_plain = graph_ms(run_plain)
+        except RuntimeError as e:           # not capturable: say so
+            print(f"[3 K1] index_add_ could not be captured: {e}")
+            g_plain = None
+        us, plain_us = (host_us(run_kernel, len(levels)),
+                        host_us(run_plain, len(levels)))
+        # the values any implementation moves: each source read once, each
+        # destination read and written once
+        item = pk.element_size()
+        values = sum(lv.n_pairs * item + 2 * lv.n_dest * item
+                     for lv in levels)
+        b_ms, b_by = bound(values)
+        out[dtype] = dict(err=err, scale=scale, ms=ms, plain_ms=plain_ms,
+                          graph_ms=g_ms, graph_plain_ms=g_plain,
+                          bound=(b_ms, b_by))
+        g_plain_txt = "n/a" if g_plain is None else f"{g_plain:.4f}"
+        line = (f"[3 K1] {str(dtype)[6:]}: max|err| {err:.3e} (max|pool| "
+                f"{scale:.3e}), two runs bit-equal; one factor's "
+                f"extend-add: issued from the host kernel {ms:.4f} ms, "
+                f"index_add_ {plain_ms:.4f} ms; as a CUDA graph kernel "
+                f"{g_ms:.4f} ms, index_add_ {g_plain_txt} ms; host "
+                f"{us:.1f} us a kernel call, {plain_us:.1f} us an "
+                f"index_add_ call; values bound {b_ms:.4f} ms "
+                f"({values / 1e6:.0f} MB), graph time "
+                f"{b_ms / g_ms:.3f} of it")
+        if dtype == torch.float32:
+            # the bound as first counted: with a destination-sorted plan's
+            # index bytes
+            idx = levels[0].src.element_size()
+            old = sum(lv.n_pairs * (idx + item) + (lv.n_dest + 1) * idx
+                      + lv.n_dest * (idx + 2 * item) for lv in levels)
+            line += (f"; counting a destination-sorted plan's index bytes "
+                     f"as well, as the bound once did: {bound(old)[0]:.4f} "
+                     f"ms")
+        print(line)
         del pool0, pk, pp
     return out
 
@@ -335,12 +401,12 @@ def time_pair(kernel, plain, reps: int = 100, queued: bool = True):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def spmv_cases(tag, M, kind, launch, plain, seed):
+def spmv_cases(tag, M, kind, launch, plain, seed, tols=(1e-5, 1e-12)):
     """Plan ``M`` with ``plan_spmv`` on the card (asserting ``kind``); in
     float32 and float64 drive one ``SpMVPlan.matvec`` (the main path, its
-    kernel launches counted), hold it against the plain version and scipy,
-    and time kernel and plain.  Returns the main path's launches and the
-    float32 result."""
+    kernel launches counted), hold it against the plain version and scipy
+    (to ``tols`` of max|y|), and time kernel and plain.  Returns the main
+    path's launches and the float32 result."""
     import numpy as np
     import torch
     from elemental_tpu_torch.sparse import plan_spmv
@@ -355,7 +421,7 @@ def spmv_cases(tag, M, kind, launch, plain, seed):
     idx = torch.int32 if M.nnz < 2**31 else torch.int64
     crow = torch.from_numpy(A_sp.indptr).to("cuda", idx)
     ccol = torch.from_numpy(A_sp.indices).to("cuda", idx)
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype, tol in zip((torch.float32, torch.float64), tols):
         plan = host.to("cuda", dtype)
         x = torch.from_numpy(x64).to("cuda", dtype)
         part = plan.stencil if plan.stencil is not None else plan.gather
@@ -470,12 +536,41 @@ def random_d10(seed: int):
                                  rng.standard_normal(10 * n))
 
 
+def skewed_zipf(seed: int):
+    """n = 2^20 rows with power-law lengths (zipf(1.93) - 1, capped at
+    65,536): about 10·n entries, 58 % of the rows empty, ~140 rows of 10^4
+    entries or more; uniform random columns."""
+    import numpy as np
+    from elemental_tpu_torch.sparse import SparseMatrix
+    n = 1 << 20
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(1.93, n) - 1, 65536)
+    nnz = int(lengths.sum())
+    return SparseMatrix.from_coo(n, n, np.repeat(np.arange(n), lengths),
+                                 rng.integers(0, n, nnz),
+                                 rng.standard_normal(nnz))
+
+
 def phase_k2(A, seed: int):
-    """K2 on the uniform-random CSR of :func:`random_d10`."""
+    """K2 on the uniform-random CSR of :func:`random_d10`, then on the
+    skewed rows of :func:`skewed_zipf` (printed, not gated on time)."""
     from elemental_tpu_torch.kernels.unstructured import (gather_spmv,
                                                           gather_spmv_plain)
-    return spmv_cases("[8 K2] uniform random d=10", A, "gather_csr",
-                      gather_spmv, gather_spmv_plain, seed)
+    launches, out = spmv_cases("[8 K2] uniform random d=10", A, "gather_csr",
+                               gather_spmv, gather_spmv_plain, seed)
+    S = skewed_zipf(seed)
+    lengths = S.row_nnz()
+    print(f"[8 K2] skewed rows: n={S.height} nnz={S.nnz}, "
+          f"{int((lengths == 0).sum())} empty rows, "
+          f"{int((lengths >= 10**4).sum())} rows of 10^4 entries or more, "
+          f"longest {int(lengths.max())}")
+    # rows of up to 65,536 terms: the sums' rounding grows with the row
+    # (and index_add_ and cuSPARSE add in orders of their own), so the
+    # gates are ten times the uniform matrix's
+    n, _ = spmv_cases("[8 K2] skewed zipf rows", S, "gather_csr",
+                      gather_spmv, gather_spmv_plain, seed,
+                      tols=(1e-4, 1e-11))
+    return launches + n, out
 
 
 # f32 CG on the unscaled 1024^2 Laplacian: the bound on the true relative
@@ -917,8 +1012,10 @@ def main() -> int:
     # where the plain version is itself the one library call (index_add_,
     # cuBLAS, torch's elementwise kernels), library_ms is its time
     print(json.dumps({"kernels": [
-        entry("extend_add", "extend_add.cu", "extend_add.py:58", launches,
-              r32, library_ms=r32["plain_ms"]),
+        dict(entry("extend_add", "extend_add.cu", "extend_add.py:58",
+                   launches, r32, library_ms=r32["plain_ms"]),
+             graph_ms=r32["graph_ms"],
+             graph_plain_ms=r32["graph_plain_ms"]),
         entry("stencil_spmv", "stencil_spmv.cu", "spmv.py:123", k3_launches,
               k3, library_ms=k3["lib_ms"]),
         entry("gather_spmv", "csr_spmv.cu", "unstructured.py:179",

@@ -21,6 +21,8 @@ import torch
 from .._build import CSRC_DIR, build_cuda_library
 
 SOURCE = os.path.join(CSRC_DIR, "extend_add.cu")
+# run pairs a block of the kernel takes: csrc/extend_add.cu's RUN_BLOCK
+RUN_BLOCK = 2048
 
 _FN_NAMES = {
     (torch.float32, torch.int32): "el_extend_add_f32_i32",
@@ -41,8 +43,8 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     for name in _FN_NAMES.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [
+            ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -53,30 +55,40 @@ def extend_add_plain(pool: torch.Tensor, level) -> None:
 
 
 def _check(pool: torch.Tensor, level) -> None:
-    idx = (level.udst, level.offsets, level.src)
-    if any(t.device != pool.device for t in idx):
+    """What depends on the pool; ``EALevel.to`` checked the plan itself."""
+    if level.run_off.device != pool.device:
         raise ValueError("extend_add: plan and pool are on different devices")
     if pool.dim() != 1 or not pool.is_contiguous():
         raise ValueError("extend_add: pool must be a contiguous 1-D tensor")
-    if not all(t.is_contiguous() and t.dim() == 1 for t in idx):
-        raise ValueError("extend_add: plan index arrays must be contiguous")
-    if (pool.dtype, level.udst.dtype) not in _FN_NAMES or any(
-            t.dtype != level.udst.dtype for t in idx):
+    if (pool.dtype, level.run_off.dtype) not in _FN_NAMES:
         raise TypeError(f"extend_add: unsupported types pool={pool.dtype}, "
-                        f"index={[t.dtype for t in idx]}")
+                        f"index={level.run_off.dtype}")
     n = pool.numel()
-    if level.hi > n or level.src_max >= n or level.lo < 0:
+    if level.hi > n or level.src_max >= n:
         raise IndexError(f"extend_add: plan indexes past the pool "
                          f"(segment [{level.lo}, {level.hi}), largest "
                          f"source {level.src_max}, pool {n})")
-    if level.offsets.numel() != level.udst.numel() + 1:
-        raise ValueError("extend_add: offsets must have one more entry "
-                         "than udst")
+
+
+def _plan_args(level) -> tuple:
+    """The kernel's arguments that come from the plan, converted for ctypes
+    once and kept on the level (its arrays do not move)."""
+    args = level.__dict__.get("_k1_args")
+    if args is None:
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        args = (ptr(level.run_dst), ptr(level.run_src), ptr(level.run_off),
+                ptr(level.run_blk), ctypes.c_int64(level.n_runs),
+                ctypes.c_int64(level.n_run_pairs), ptr(level.udst),
+                ptr(level.offsets), ptr(level.src),
+                ctypes.c_int64(level.n_multi))
+        level.__dict__["_k1_args"] = args
+    return args
 
 
 def extend_add(pool: torch.Tensor, level) -> None:
-    """In place: ``pool[udst[i]] += Σ pool[src[offsets[i]:offsets[i+1]]]``
-    for one level of an :class:`~..sparse_direct.ea_plan.EAPlan`.
+    """In place: ``pool[dst] += pool[src]`` over one level of an
+    :class:`~..sparse_direct.ea_plan.EAPlan` (its runs and its
+    multi-source destinations), duplicate destinations summed.
 
     CPU pool: the plain version.  CUDA pool: the K1 kernel, or an
     exception.  ``extend_add.launches`` counts kernel launches."""
@@ -86,12 +98,10 @@ def extend_add(pool: torch.Tensor, level) -> None:
     if pool.device.type != "cuda":
         raise ValueError(f"extend_add: no kernel for device {pool.device}")
     _check(pool, level)
-    fn = getattr(_lib(), _FN_NAMES[(pool.dtype, level.udst.dtype)])
+    fn = getattr(_lib(), _FN_NAMES[(pool.dtype, level.run_off.dtype)])
     with torch.cuda.device(pool.device):
         stream = torch.cuda.current_stream(pool.device).cuda_stream
-        rc = fn(pool.data_ptr(), level.udst.data_ptr(),
-                level.offsets.data_ptr(), level.src.data_ptr(),
-                level.n_udst, stream)
+        rc = fn(pool.data_ptr(), *_plan_args(level), stream)
     if rc != 0:
         raise RuntimeError(f"extend_add: kernel launch failed with CUDA "
                            f"error {rc}")

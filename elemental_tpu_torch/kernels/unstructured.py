@@ -6,11 +6,12 @@ bridged tier, the stream gather and the bucketed combine K7
 Replaces the TPU kernel ``elemental_tpu/kernels/unstructured.py:
 gather_multiply`` together with the ``segment_sum`` that ``GatherPlan.matvec``
 applies to its output: :func:`gather_spmv` computes y = A·x in one pass over
-the row-sorted CSR.  The reference sorted entries by column into 1024-entry
-tiles over 256-column windows (and split wide matrices into column chunks,
-``ChunkedGatherPlan``) because Mosaic gathers only within one vreg and VMEM
-is scoped; the H100 gathers x from device memory, so the port's plan is the
-CSR itself.
+the row-sorted CSR, its entries shared out evenly among warps (with a small
+fix-up pass for the rows that reach far across a share boundary).  The
+reference sorted entries by column into 1024-entry tiles over 256-column
+windows (and split wide matrices into column chunks, ``ChunkedGatherPlan``)
+because Mosaic gathers only within one vreg and VMEM is scoped; the H100
+gathers x from device memory, so the port's plan is the CSR itself.
 
 The bridged tier (:class:`BridgedPlan`) replaces the reference's
 ``BridgedPlan.matvec`` (``unstructured.py:248-484``): the column-sorted
@@ -23,9 +24,9 @@ and :func:`onehot_combine_bucketed` (y[b·bucket + LR] = Σ P, in float32).
 
 Each kernel is built with ``nvcc`` for sm_90a at first use (``_build.py``)
 and loaded with ctypes; it launches on the current CUDA stream and allocates
-nothing but its output.  Every wrapper takes the plain version only for
-tensors on the CPU.  For CUDA tensors it launches the kernel or raises:
-nothing falls back.
+nothing but its output (and, for K2, its per-share partial sums).  Every
+wrapper takes the plain version only for tensors on the CPU.  For CUDA
+tensors it launches the kernel or raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ from .._build import CSRC_DIR, build_cuda_library
 from ..core.policy import index_dtype
 
 SOURCE = os.path.join(CSRC_DIR, "csr_spmv.cu")
+# entries a warp of the K2 kernel takes (32 lanes x 8), and the most entries
+# a row may reach into the next share and still be finished by the share it
+# starts in: csrc/csr_spmv.cu's SHARE and TAIL
+SHARE = 256
+TAIL = 32
 BRIDGED_SOURCE = os.path.join(CSRC_DIR, "bridged.cu")
 
 _FN_NAMES = {
@@ -57,7 +63,13 @@ class GatherPlan:
     """y = A·x over the row-sorted CSR of A.  ``rowptr``/``colind`` (and
     ``rows``, the row of each entry, which only the plain version reads)
     follow the index-width rule; ``col_max`` is the largest column index
-    (-1 when there are no entries)."""
+    (-1 when there are no entries).  The kernel shares the entries out in
+    runs of ``SHARE``: ``split[w]`` is the row that holds entry ``SHARE·w``
+    (``np.searchsorted(rowptr, SHARE·w, 'right') - 1``, one more entry than
+    there are shares), and ``fix`` lists, in ascending order, the shares in
+    which a row ends that the kernel's fix-up pass finishes: a row whose
+    entries lie in more than one share, unless it reaches at most ``TAIL``
+    entries into the next one."""
 
     n_rows: int
     n_cols: int
@@ -67,6 +79,12 @@ class GatherPlan:
     vals: torch.Tensor       # (nnz,)
     rows: torch.Tensor       # (nnz,)
     col_max: int
+    split: torch.Tensor      # (n_shares + 1,)
+    fix: torch.Tensor        # (rows the fix-up pass finishes,)
+
+    @property
+    def n_shares(self) -> int:
+        return self.split.numel() - 1
 
     def to(self, device=None, dtype=None) -> "GatherPlan":
         """A copy on ``device`` with values in ``dtype`` (either kept when
@@ -74,17 +92,11 @@ class GatherPlan:
         return dataclasses.replace(
             self, rowptr=self.rowptr.to(device),
             colind=self.colind.to(device), vals=self.vals.to(device, dtype),
-            rows=self.rows.to(device))
+            rows=self.rows.to(device), split=self.split.to(device),
+            fix=self.fix.to(device))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return gather_spmv(self, x)
-
-    @property
-    def group(self) -> int:
-        """Lanes per row in the kernel: the power of two at or above the
-        mean row length, within [2, 32]."""
-        mean = -(-self.nnz // max(self.n_rows, 1))
-        return int(min(32, max(2, 1 << max(0, mean - 1).bit_length())))
 
     @classmethod
     def from_reference(cls, ref) -> "GatherPlan":
@@ -110,12 +122,32 @@ def _make_plan(n_rows: int, n_cols: int, rows: np.ndarray, cols: np.ndarray,
     idt = index_dtype(max(nnz, n_rows + 1, n_cols))
     rowptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_rows), out=rowptr[1:])
+    split, fix = share_split(rowptr)
+
     def conv(a, dtype=idt):
         return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
     return GatherPlan(n_rows, n_cols, nnz, conv(rowptr), conv(cols),
                       conv(vals, None), conv(rows),
-                      int(cols.max()) if nnz else -1)
+                      int(cols.max()) if nnz else -1, conv(split), conv(fix))
+
+
+def share_split(rowptr: np.ndarray):
+    """(split, fix) of a CSR ``rowptr`` cut into shares of ``SHARE``
+    entries (at least one share): ``split[w]`` is the row holding entry
+    ``SHARE·w`` (``n_rows`` at the end); ``fix`` lists the shares in which
+    a row ends that started in an earlier share and reaches more than
+    ``TAIL`` entries, or more than one share, past the share it starts
+    in."""
+    nnz = int(rowptr[-1])
+    n_shares = max(1, -(-nnz // SHARE))
+    split = np.searchsorted(rowptr, np.arange(n_shares + 1) * SHARE,
+                            side="right") - 1
+    start, end = rowptr[:-1], rowptr[1:]
+    full = end > start
+    s0, s1 = start[full] // SHARE, (end[full] - 1) // SHARE
+    short = (s1 == s0 + 1) & (end[full] - s1 * SHARE <= TAIL)
+    return split, s1[(s0 != s1) & ~short]
 
 
 def plan_gather_spmv(A) -> GatherPlan:
@@ -136,7 +168,7 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     for name in _FN_NAMES.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -151,11 +183,11 @@ def gather_spmv_plain(plan: GatherPlan, x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(plan: GatherPlan, x: torch.Tensor) -> None:
-    idx = (plan.rowptr, plan.colind)
+    idx = (plan.rowptr, plan.colind, plan.split, plan.fix)
     if any(t.device != x.device for t in idx + (plan.vals,)):
         raise ValueError("gather_spmv: plan and x are on different devices")
     if (plan.vals.dtype, plan.rowptr.dtype) not in _FN_NAMES or \
-            plan.colind.dtype != plan.rowptr.dtype:
+            any(t.dtype != plan.rowptr.dtype for t in idx):
         raise TypeError(f"gather_spmv: unsupported types "
                         f"vals={plan.vals.dtype}, index="
                         f"{[t.dtype for t in idx]}")
@@ -164,8 +196,13 @@ def _check(plan: GatherPlan, x: torch.Tensor) -> None:
         raise ValueError("gather_spmv: x and the plan's arrays must be "
                          "contiguous 1-D tensors")
     if plan.rowptr.numel() != plan.n_rows + 1 or \
-            plan.colind.numel() != plan.nnz or plan.vals.numel() != plan.nnz:
+            plan.colind.numel() != plan.nnz or \
+            plan.vals.numel() != plan.nnz or \
+            plan.n_shares != max(1, -(-plan.nnz // SHARE)):
         raise ValueError("gather_spmv: plan arrays do not match its shape")
+    if any(t.data_ptr() % 16 for t in (plan.colind, plan.vals)):
+        raise ValueError("gather_spmv: colind and vals must be 16-byte "
+                         "aligned")
     if x.numel() != plan.n_cols or plan.col_max >= plan.n_cols:
         raise IndexError(f"gather_spmv: x has {x.numel()} entries; the plan "
                          f"has {plan.n_cols} columns and reads column "
@@ -175,8 +212,9 @@ def _check(plan: GatherPlan, x: torch.Tensor) -> None:
 def gather_spmv(plan: GatherPlan, x: torch.Tensor) -> torch.Tensor:
     """y = A·x, with x cast to the plan's dtype.
 
-    CPU tensors: the plain version.  CUDA tensors: the K2 kernel, or an
-    exception.  ``gather_spmv.launches`` counts kernel launches."""
+    CPU tensors: the plain version.  CUDA tensors: the K2 kernel (with its
+    fix-up pass when the plan has rows for it), or an exception.
+    ``gather_spmv.launches`` counts products run by the kernel."""
     if x.device.type == "cpu":
         return gather_spmv_plain(plan, x)
     if x.device.type != "cuda":
@@ -185,11 +223,15 @@ def gather_spmv(plan: GatherPlan, x: torch.Tensor) -> torch.Tensor:
     _check(plan, x)
     fn = getattr(_lib(), _FN_NAMES[(plan.vals.dtype, plan.rowptr.dtype)])
     y = torch.empty(plan.n_rows, dtype=x.dtype, device=x.device)
+    # per share: the partial sums of its first and its last row
+    parts = torch.empty(2 * plan.n_shares, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(plan.rowptr.data_ptr(), plan.colind.data_ptr(),
-                plan.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                plan.n_rows, plan.group, stream)
+                plan.vals.data_ptr(), plan.split.data_ptr(),
+                plan.fix.data_ptr(), x.data_ptr(), y.data_ptr(),
+                parts.data_ptr(), plan.n_rows, plan.nnz, plan.n_shares,
+                plan.fix.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"gather_spmv: kernel launch failed with CUDA "
                            f"error {rc}")

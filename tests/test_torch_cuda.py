@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from elemental_tpu_torch.kernels import elementwise as ew
-from elemental_tpu_torch.kernels.extend_add import (extend_add,
+from elemental_tpu_torch.kernels.extend_add import (RUN_BLOCK, extend_add,
                                                     extend_add_plain)
 from elemental_tpu_torch.kernels.matmul import (_matmul_path, _run_matmul,
                                                 masked_rank_k_update,
@@ -33,10 +33,14 @@ from elemental_tpu_torch.lapack import cg
 from elemental_tpu_torch.matrices import (concat_fd_2d, sparse_laplacian_2d,
                                           sparse_laplacian_3d)
 from elemental_tpu_torch.optimization import LPCtrl, lp_direct
+from elemental_tpu_torch.optimization.lp import _build_lp_kkt, sparse_ruiz
 from elemental_tpu_torch.sparse import SparseMatrix, plan_spmv
-from elemental_tpu_torch.sparse_direct import (SparseLDLFactorization,
+from elemental_tpu_torch.sparse_direct import (EAPlan,
+                                               SparseLDLFactorization,
                                                analyze, build_ea_plan,
                                                nested_dissection)
+from elemental_tpu_torch.sparse_direct.ea_plan import (INDEX_FIELDS,
+                                                       build_ea_level)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,10 +58,62 @@ def _plan(index_dtype):
     plan = build_ea_plan(symb)
     if index_dtype == torch.int64:
         plan.levels = {li: dataclasses.replace(
-            lv, **{f: getattr(lv, f).astype(np.int64)
-                   for f in ("udst", "offsets", "src", "dst")})
+            lv, **{f: getattr(lv, f).astype(np.int64) for f in INDEX_FIELDS})
             for li, lv in plan.levels.items()}
     return symb, plan
+
+
+def _ea_case(case, cuda):
+    """(pool size, plan on the card) of a K1 test plan."""
+    if case == "laplacian_8":
+        symb, plan = _plan(torch.int32)
+        return symb.pool_size, plan.to(cuda)
+    if case == "kkt_fd_8":
+        kkt, _ = _build_lp_kkt(sparse_ruiz(concat_fd_2d(8, 8))[0], 1e-2,
+                               1e-2, None, device=cuda, dtype=torch.float64)
+        return kkt.symb.pool_size, kkt.ea_plan
+    rng = np.random.default_rng(7)
+    n = 3 * RUN_BLOCK + 17
+    if case == "single_pair_runs":     # no two pairs continue each other
+        dst, src = n + rng.permutation(n), rng.permutation(n)
+    else:                              # long runs cut by multi-source pairs
+        dst = np.concatenate([n + np.arange(n), n + np.arange(0, n, 7)])
+        src = np.concatenate([np.arange(n), rng.integers(0, n, -(-n // 7))])
+    lv = build_ea_level(dst, src, n, 2 * n, 2 * n)
+    assert case != "single_pair_runs" or lv.n_runs == n
+    return 2 * n, EAPlan({0: lv}, 2 * n).to(cuda)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", ["laplacian_8", "kkt_fd_8",
+                                  "single_pair_runs", "runs_and_multi"])
+def test_kernel_run_plan_is_bit_stable(cuda, case, dtype, rtol,
+                                       index_dtype):
+    """K1 over every level of the plan against ``index_add_``, and two
+    runs from the same pool bit-equal (no atomics)."""
+    pool_size, plan = _ea_case(case, cuda)
+    levels = [dataclasses.replace(lv, **{
+        f: getattr(lv, f).to(index_dtype) for f in INDEX_FIELDS})
+        for _, lv in sorted(plan.levels.items())]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pool0 = torch.rand(pool_size, generator=g, device=cuda, dtype=dtype)
+    runs = []
+    for _ in range(2):
+        pool = pool0.clone()
+        before = extend_add.launches
+        for lv in levels:
+            extend_add(pool, lv)
+        assert extend_add.launches - before == len(levels)
+        runs.append(pool)
+    ref = pool0.clone()
+    for lv in levels:
+        extend_add_plain(ref, lv)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert float((runs[0] - ref).abs().max()) <= rtol * float(
+        ref.abs().max())
 
 
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
@@ -199,7 +255,8 @@ def test_gather_kernel_matches_plain(cuda, dtype, rtol, index_dtype, nnzr):
     plan = plan_gather_spmv(A)
     plan = dataclasses.replace(plan, **{
         f: getattr(plan, f).to(index_dtype)
-        for f in ("rowptr", "colind", "rows")}).to(cuda, dtype)
+        for f in ("rowptr", "colind", "rows", "split", "fix")}).to(cuda,
+                                                                  dtype)
     x = torch.rand(A.width, generator=torch.Generator(device=cuda)
                    .manual_seed(0), device=cuda, dtype=dtype)
     before = gather_spmv.launches
@@ -210,6 +267,56 @@ def test_gather_kernel_matches_plain(cuda, dtype, rtol, index_dtype, nnzr):
     assert float((y - ref).abs().max()) <= rtol * float(ref.abs().max())
     y2 = gather_spmv(plan, x)
     assert torch.equal(y, y2)      # no atomics: the same bits every run
+
+
+def _csr_of_lengths(lengths, width=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int64)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    return SparseMatrix.from_coo(lengths.size, width, rows,
+                                 rng.integers(0, width, rows.size),
+                                 rng.standard_normal(rows.size))
+
+
+GATHER_SHAPES = {
+    "empty_rows": lambda rng: np.where(rng.random(4000) < 0.4, 0,
+                                       rng.integers(1, 30, 4000)),
+    "empty_ends": lambda rng: [0] * 700 + [5] * 2000 + [0] * 900,
+    "long_row": lambda rng: [3] * 200 + [100_000] + [0, 2] * 150,
+    "straddling": lambda rng: [255, 257, 513, 1, 767, 256, 2, 1023] * 20,
+    "one_row": lambda rng: [37],
+    "one_entry": lambda rng: [0, 0, 1, 0],
+    "no_entries": lambda rng: [0] * 300,
+}
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,rtol", TOL)
+@pytest.mark.parametrize("case", sorted(GATHER_SHAPES))
+def test_gather_kernel_row_shapes(cuda, case, dtype, rtol, index_dtype):
+    """K2 on rows that stress the nnz-balanced shares (empty rows, rows
+    longer than many shares, rows across share boundaries, a single row or
+    entry, no entries): against the plain version, exactly 0 on empty
+    rows, and two runs bit-equal."""
+    A = _csr_of_lengths(GATHER_SHAPES[case](np.random.default_rng(3)))
+    plan = plan_gather_spmv(A)
+    plan = dataclasses.replace(plan, **{
+        f: getattr(plan, f).to(index_dtype)
+        for f in ("rowptr", "colind", "rows", "split", "fix")}).to(cuda,
+                                                                  dtype)
+    x = torch.rand(A.width, generator=torch.Generator(device=cuda)
+                   .manual_seed(0), device=cuda, dtype=dtype)
+    before = gather_spmv.launches
+    y = gather_spmv(plan, x)
+    y2 = gather_spmv(plan, x)
+    ref = gather_spmv_plain(plan, x)
+    torch.cuda.synchronize()
+    assert gather_spmv.launches - before == 2
+    assert torch.equal(y, y2)
+    empty = torch.from_numpy(np.diff(A.rowptr) == 0).to(cuda)
+    assert torch.equal(y[empty], torch.zeros_like(y[empty]))
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((y - ref).abs().max()) <= rtol * scale
 
 
 def test_spmv_wrappers_refuse_bad_inputs(cuda):
@@ -236,6 +343,11 @@ def test_spmv_wrappers_refuse_bad_inputs(cuda):
         gather_spmv(g, x[:-1])
     with pytest.raises(IndexError):
         gather_spmv(dataclasses.replace(g, n_cols=g.col_max), x[:g.col_max])
+    with pytest.raises(ValueError, match="aligned"):
+        gather_spmv(dataclasses.replace(
+            g, vals=torch.zeros(g.nnz + 1, device=cuda)[1:]), x)
+    with pytest.raises(ValueError, match="shape"):
+        gather_spmv(dataclasses.replace(g, split=g.split[:-1]), x)
 
 
 def _scrambled_banded(n=2048, bw=6, seed=1):

@@ -22,11 +22,12 @@ from elemental_tpu.sparse_direct.ordering import (
     nested_dissection as jax_nested_dissection)
 from elemental_tpu.sparse_direct.symbolic import analyze as jax_analyze
 
-from elemental_tpu_torch.kernels.extend_add import (extend_add,
+from elemental_tpu_torch.kernels.extend_add import (RUN_BLOCK, extend_add,
                                                     extend_add_plain)
 from elemental_tpu_torch.matrices import concat_fd_2d
 from elemental_tpu_torch.sparse_direct import (build_ea_plan,
                                                from_reference)
+from elemental_tpu_torch.sparse_direct.ea_plan import build_ea_level
 
 torch.set_num_threads(1)
 
@@ -60,15 +61,21 @@ def test_plan_matches_numpy_model(jsymb):
     assert sorted(plan.levels) == with_children
     for li in with_children:
         lev, lv = symb.levels[li], plan.levels[li]
+        m = int(lv.offsets[-1])                          # multi-source pairs
         assert np.all(np.diff(lv.udst) > 0)              # unique, sorted
-        assert lv.offsets[0] == 0 and lv.offsets[-1] == lv.n_pairs
-        assert np.all(np.diff(lv.offsets) > 0)
-        assert np.array_equal(lv.dst, np.repeat(lv.udst,
-                                                np.diff(lv.offsets)))
-        # same multiset of pairs as the symbolic plan, sources in stable
-        # destination order
+        assert lv.offsets[0] == 0 and m + lv.n_run_pairs == lv.n_pairs
+        assert np.all(np.diff(lv.offsets) >= 2)          # two sources or more
+        assert np.array_equal(lv.dst[:m], np.repeat(lv.udst,
+                                                    np.diff(lv.offsets)))
+        # the multi-source destinations' sources in stable destination
+        # order, as the symbolic plan has them
         order = np.argsort(lev.child_dst, kind="stable")
-        assert np.array_equal(lv.src, lev.child_src[order])
+        multi = np.isin(lev.child_dst[order], lv.udst)
+        assert np.array_equal(lv.src[:m], lev.child_src[order][multi])
+        # the run part is the rest, in the symbolic plan's order
+        single = ~np.isin(lev.child_dst, lv.udst)
+        assert np.array_equal(lv.dst[m:], lev.child_dst[single])
+        assert np.array_equal(lv.src[m:], lev.child_src[single])
         assert lv.src_max == lev.child_src.max()
         np.add.at(expect, lev.child_dst, expect[lev.child_src])
         extend_add(got, lv.to("cpu"))
@@ -91,6 +98,94 @@ def test_plan_rejects_unsafe_geometry():
     levels[li] = bad
     with pytest.raises(ValueError, match="destination outside"):
         build_ea_plan(dataclasses.replace(symb, levels=levels))
+
+
+def test_level_to_checks_the_plan_once():
+    """``EALevel.to`` refuses a plan whose arrays do not fit together: one
+    index type, offsets one longer than the destinations, run blocks as
+    ``RUN_BLOCK`` gives them."""
+    symb = from_reference(_jax_symb("laplacian_7"))
+    lv = next(iter(build_ea_plan(symb).levels.values()))
+    lv.to("cpu")
+    with pytest.raises(TypeError, match="one index"):
+        dataclasses.replace(lv, src=lv.src.astype(np.int64)).to("cpu")
+    with pytest.raises(ValueError, match="offsets"):
+        dataclasses.replace(lv, offsets=lv.offsets[:-1]).to("cpu")
+    with pytest.raises(ValueError, match="run_blk"):
+        dataclasses.replace(lv, run_blk=lv.run_blk[:-1]).to("cpu")
+    with pytest.raises(ValueError, match="multi-source and the run"):
+        dataclasses.replace(lv, n_run_pairs=lv.n_run_pairs - 1).to("cpu")
+
+
+def _expand_runs(lv):
+    """The (dst, src) pairs of a level's runs, in run order."""
+    lengths = np.diff(lv.run_off.astype(np.int64))
+    step = np.arange(lv.n_run_pairs) - np.repeat(lv.run_off[:-1], lengths)
+    return (np.repeat(lv.run_dst, lengths) + step,
+            np.repeat(lv.run_src, lengths) + step)
+
+
+@pytest.mark.parametrize("idt", [np.int32, np.int64])
+def test_run_form_expands_to_the_symbolic_pairs(jsymb, idt):
+    """The runs and the multi-source part together are exactly the
+    symbolic plan's (dst, src) pairs; the runs are maximal and in the
+    symbolic order; ``run_blk`` is ``np.searchsorted`` of ``run_off``."""
+    symb = from_reference(jsymb)
+    for lev in symb.levels:
+        if not lev.child_dst.size:
+            continue
+        lo = int(lev.offset)
+        hi = lo + len(lev.sn_ids) * lev.front_size ** 2
+        lv = build_ea_level(lev.child_dst, lev.child_src, lo, hi,
+                            symb.pool_size, idt)
+        assert all(getattr(lv, f).dtype == idt for f in (
+            "udst", "offsets", "src", "dst", "run_dst", "run_src",
+            "run_off", "run_blk"))
+        rd, rs = _expand_runs(lv)
+        m = int(lv.offsets[-1])
+        assert np.array_equal(rd, lv.dst[m:]) and np.array_equal(rs,
+                                                                 lv.src[m:])
+        got = np.stack([np.concatenate([lv.dst[:m], rd]),
+                        np.concatenate([lv.src[:m], rs])]).astype(np.int64)
+        want = np.stack([lev.child_dst, lev.child_src])
+        assert np.array_equal(got[:, np.lexsort(got[::-1])],
+                              want[:, np.lexsort(want[::-1])])
+        # maximal: a run's end does not continue into the next run
+        ends = lv.run_off[1:-1].astype(np.int64) - 1
+        assert not np.any((rd[ends] + 1 == lv.run_dst[1:])
+                          & (rs[ends] + 1 == lv.run_src[1:]))
+        assert np.all(np.diff(lv.run_off) >= 1)
+        blocks = -(-lv.n_run_pairs // RUN_BLOCK)
+        assert np.array_equal(lv.run_blk, np.searchsorted(
+            lv.run_off, RUN_BLOCK * np.arange(blocks + 1), side="right") - 1)
+
+
+def test_run_and_multi_destinations_are_disjoint(jsymb):
+    """No destination is in both parts, and each run destination has one
+    source."""
+    symb = from_reference(jsymb)
+    for lv in build_ea_plan(symb).levels.values():
+        rd, _ = _expand_runs(lv)
+        assert np.unique(rd).size == rd.size
+        assert np.intersect1d(rd, lv.udst).size == 0
+
+
+def test_level_of_single_pair_runs():
+    """Pairs with no neighbour in common make one run each, across several
+    run blocks; the plain extend-add of the level matches np.add.at."""
+    rng = np.random.default_rng(4)
+    n = 3 * RUN_BLOCK + 17
+    dst = n + rng.permutation(n)
+    src = rng.permutation(n)
+    lv = build_ea_level(dst, src, n, 2 * n, 2 * n)
+    assert lv.n_multi == 0 and lv.n_runs == lv.n_run_pairs == n
+    assert lv.run_blk.size == 5 and lv.run_blk[-1] == n
+    pool = rng.standard_normal(2 * n)
+    expect = pool.copy()
+    np.add.at(expect, dst, expect[src])
+    got = torch.as_tensor(pool.copy())
+    extend_add(got, lv.to("cpu"))
+    assert np.array_equal(got.numpy(), expect)
 
 
 def test_extend_add_matches_reference(jsymb):
