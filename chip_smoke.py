@@ -41,8 +41,12 @@ Phases, each printing at least one line and each fatal when it fails:
 10. the bridged tier: ``plan_spmv(kind='bridged')`` of phase 8's matrix, one
     ``SpMVPlan.matvec`` in float32 and float64 (y float32 in both) held
     against the plain versions of both stages and scipy; the stream gather
-    and K7 each against its plain version, and the whole matvec against
-    the whole plain path and against K2 on the same matrix;
+    and K7 each against its plain version; K7 bit-equal to its sums in
+    plan order (``combine_in_plan_order``) with and without the prebuilt
+    summation plan, and K7 and the matvec bit-stable over 5 calls; K7's
+    time with and without the plan and the plan's build time; the whole
+    matvec against the whole plain path and against K2 on the same matrix,
+    in event time and in device time (``torch.profiler``) per kernel;
 11. K4 ``matmul`` at 4096³ in float32, bfloat16 and float64 (the ffma,
     wgmma and dmma paths, asserted by their counters), at 3000×1000×2056
     through the same paths and at 4096×4095×4096 float32 (the SIMT path),
@@ -616,7 +620,8 @@ def phase_bridged(A, seed: int):
     import numpy as np
     import torch
     from elemental_tpu_torch.kernels.unstructured import (
-        gather_spmv, onehot_combine_bucketed, onehot_combine_bucketed_plain,
+        combine_in_plan_order, gather_spmv, onehot_combine_bucketed,
+        onehot_combine_bucketed_plain, plan_bridged_spmv, plan_combine,
         plan_gather_spmv, stream_gather, stream_gather_plain)
     from elemental_tpu_torch.sparse import plan_spmv
     t0 = time.perf_counter()
@@ -626,7 +631,9 @@ def phase_bridged(A, seed: int):
     g = host.gather
     print(f"[10 bridged] n={A.height} nnz={A.nnz}: host plan {t_plan:.2f} s; "
           f"{g.nbuckets} buckets of {g.bucket} rows, SUB={g.sub}, "
-          f"{g.slots} slots ({g.slots / A.nnz - 1:.4f} padding)")
+          f"{g.slots} slots ({g.slots / A.nnz - 1:.4f} padding); K7's "
+          f"summation order is "
+          f"{'the slots' if g.combine.order is None else 'permuted'}")
     x64 = np.random.default_rng(seed).standard_normal(A.width)
     A_sp = A.to_scipy().astype(np.float64)
     launches = {"gather": 0, "combine": 0}
@@ -661,16 +668,39 @@ def phase_bridged(A, seed: int):
         check(g_err == 0.0, f"bridged {dtype}: stream gather vs plain "
               f"max|err| {g_err:.3e} (one product a slot: must be 0)")
         Pk = Pk.view(bp.lr.shape)
-        yk = onehot_combine_bucketed(Pk, bp.lr, bucket=bp.bucket)
+        cp = bp.combine
+        yk = onehot_combine_bucketed(Pk, bp.lr, bucket=bp.bucket, plan=cp)
         ck = onehot_combine_bucketed_plain(Pk, bp.lr, bp.bucket)
         c_err = float((yk - ck).abs().max())
         check(c_err <= 1e-5 * float(ck.abs().max()),
               f"bridged {dtype}: K7 vs index_add_ max|err| {c_err:.3e}")
+        # the fixed order: K7 has the bits of the plain sum in plan order,
+        # with or without the prebuilt plan, and K7 and the whole matvec
+        # keep their bits over 5 calls
+        check(torch.equal(bits(yk), bits(combine_in_plan_order(Pk, cp))),
+              f"bridged {dtype}: K7 is not bit-equal to its sums in plan "
+              f"order")
+        check(torch.equal(bits(yk), bits(onehot_combine_bucketed(
+            Pk, bp.lr, bucket=bp.bucket))), f"bridged {dtype}: K7 without "
+              f"a prebuilt plan gives other bits")
+        y_bits = bits(y)
+        for _ in range(5):
+            check(torch.equal(bits(onehot_combine_bucketed(
+                Pk, bp.lr, bucket=bp.bucket, plan=cp)), bits(yk)),
+                f"bridged {dtype}: K7's bits changed between calls")
+            check(torch.equal(bits(plan.matvec(x)), y_bits),
+                  f"bridged {dtype}: the matvec's bits changed between "
+                  f"calls")
         ms_g, plain_g = time_pair(lambda: stream_gather(bp, x),
                                   lambda: stream_gather_plain(bp, x))
         ms_c, plain_c = time_pair(
-            lambda: onehot_combine_bucketed(Pk, bp.lr, bucket=bp.bucket),
+            lambda: onehot_combine_bucketed(Pk, bp.lr, bucket=bp.bucket,
+                                            plan=cp),
             lambda: onehot_combine_bucketed_plain(Pk, bp.lr, bp.bucket))
+        # without a plan the wrapper sorts LR on every call
+        ms_bare = cuda_ms(lambda: onehot_combine_bucketed(
+            Pk, bp.lr, bucket=bp.bucket), 20)
+        ms_build = cuda_ms(lambda: plan_combine(bp.lr, bp.bucket), 20)
         ms_all, plain_all = time_pair(
             lambda: plan.matvec(x),
             lambda: onehot_combine_bucketed_plain(
@@ -679,27 +709,153 @@ def phase_bridged(A, seed: int):
         k2 = plan_gather_spmv(A).to("cuda", dtype)
         ms_b, ms_k2 = time_pair(lambda: plan.matvec(x),
                                 lambda: gather_spmv(k2, x))
+        dev_b = device_us(lambda: plan.matvec(x))
+        dev_k2 = device_us(lambda: gather_spmv(k2, x))
         gbs = plan.stream_bytes / (ms_all * 1e-3) / 1e9
-        print(f"[10 bridged] {str(dtype)[6:]}: y float32, max|err| vs plain "
-              f"{err:.3e}, vs scipy {host_err:.3e} (max|y| {scale:.3e}); "
-              f"stream gather {ms_g:.4f} ms vs plain {plain_g:.4f} ms; K7 "
-              f"{ms_c:.4f} ms vs index_add_ {plain_c:.4f} ms (max|err| "
-              f"{c_err:.3e}); whole matvec {ms_all:.4f} ms ({gbs:.0f} GB/s "
-              f"of stream_bytes) vs plain path {plain_all:.4f} ms; bridged "
-              f"{ms_b:.4f} ms vs K2 gather_csr {ms_k2:.4f} ms (over 100 "
-              f"launches each)")
         # the stream gather reads each slot's column and value and x once,
-        # and writes P; K7 reads P and LR and writes the float32 y
+        # and writes P; K7's yardstick reads P and LR and writes the
+        # float32 y; the kernel itself reads P and the plan (offsets, and
+        # order where there is one) instead of LR
         g_bytes = (bp.slots * (bp.cols_b.element_size()
                                + bp.vals_b.element_size() + Pk.element_size())
                    + A.width * x.element_size())
         c_bytes = (bp.slots * (Pk.element_size() + bp.lr.element_size())
                    + 4 * yk.numel())
+        read_bytes = (bp.slots * Pk.element_size() + 4 * cp.offsets.numel()
+                      + (0 if cp.order is None else 4 * cp.order.numel())
+                      + 4 * yk.numel())
+        print(f"[10 bridged] {str(dtype)[6:]}: y float32, max|err| vs plain "
+              f"{err:.3e}, vs scipy {host_err:.3e} (max|y| {scale:.3e}); K7 "
+              f"bit-equal to its sums in plan order, with and without the "
+              f"prebuilt plan, and K7 and the matvec bit-stable over 5 "
+              f"calls; stream gather {ms_g:.4f} ms vs plain {plain_g:.4f} "
+              f"ms (bound {bound(g_bytes)[0]:.4f}); K7 with the plan "
+              f"{ms_c:.4f} ms (bound P+LR+y {bound(c_bytes)[0]:.4f}, what it "
+              f"reads: P+plan+y {bound(read_bytes)[0]:.4f}), without a plan "
+              f"{ms_bare:.4f} ms, plan build {ms_build:.4f} ms, index_add_ "
+              f"{plain_c:.4f} ms (max|err| {c_err:.3e}); whole matvec "
+              f"{ms_all:.4f} ms ({gbs:.0f} GB/s of stream_bytes) vs plain "
+              f"path {plain_all:.4f} ms; bridged {ms_b:.4f} ms vs K2 "
+              f"gather_csr {ms_k2:.4f} ms ({ms_b / ms_k2:.2f}x, over 100 "
+              f"launches each)")
+        print(f"[10 bridged] {str(dtype)[6:]} device time (torch.profiler, "
+              f"us a call): matvec {fmt_us(dev_b)}; K2 {fmt_us(dev_k2)}; "
+              f"bridged/K2 {total_us(dev_b) / total_us(dev_k2):.2f}")
         out[dtype] = dict(err=err, g_err=g_err, c_err=c_err, ms_g=ms_g,
                           plain_g=plain_g, ms_c=ms_c, plain_c=plain_c,
                           g_bound=bound(g_bytes), c_bound=bound(c_bytes))
-        del plan, bp, x, y, P, Pk, yk, ck, ref, k2
+        del plan, bp, x, y, P, Pk, yk, ck, ref, k2, cp
+    # rows of every length (phase 8's skewed zipf matrix: K7's warp and
+    # block tiers), and phase 8's uniform matrix with its slots shuffled
+    # within each bucket (K7 through a permutation, as on the reference's
+    # route layout); checked, times printed, not gated on time
+    S = skewed_zipf(seed)
+    for label, hp, M in (("skewed zipf rows", plan_bridged_spmv(S), S),
+                         ("uniform d=10, shuffled slots", shuffled(g, seed),
+                          A)):
+        for dtype in (torch.float32, torch.float64):
+            bridged_rows(label, hp, M, dtype, seed)
     return launches, out[torch.float32]
+
+
+def shuffled(plan, seed: int):
+    """The host ``BridgedPlan`` with its slots shuffled within each
+    bucket."""
+    import numpy as np
+    from elemental_tpu_torch.kernels.unstructured import _make_bridged
+    nb = plan.nbuckets
+    per = plan.slots // nb
+    perm = (np.argsort(np.random.default_rng(seed).random((nb, per)), axis=1)
+            + per * np.arange(nb)[:, None]).reshape(-1)
+    return _make_bridged(plan.n_rows, plan.n_cols, plan.nnz, plan.bucket,
+                         plan.precision, plan.cols_b.numpy()[perm],
+                         plan.vals_b.numpy()[perm],
+                         plan.lr.numpy().reshape(-1)[perm].reshape(
+                             plan.lr.shape))
+
+
+def bridged_rows(label, host, M, dtype, seed: int) -> None:
+    """K7 and the bridged matvec of the host plan ``host`` of ``M``: K7
+    bit-equal to its sums in plan order, the same bits over 5 calls, within
+    1e-5·max|y| of the exact sums of P; the matvec within 1e-5·max|y| of
+    scipy; device times (torch.profiler) of K7, the matvec and K2."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.unstructured import (
+        combine_in_plan_order, gather_spmv, onehot_combine_bucketed,
+        plan_gather_spmv, stream_gather)
+    plan = host.to("cuda", dtype)
+    cp = plan.combine
+    x64 = np.random.default_rng(seed).standard_normal(M.width)
+    x = torch.from_numpy(x64).to("cuda", dtype)
+    P = stream_gather(plan, x).view(plan.lr.shape)
+    y = onehot_combine_bucketed(P, plan.lr, bucket=plan.bucket, plan=cp)
+    tag = f"bridged {label} {str(dtype)[6:]}"
+    check(torch.equal(bits(y), bits(combine_in_plan_order(P, cp))),
+          f"{tag}: K7 is not bit-equal to its sums in plan order")
+    for _ in range(5):
+        check(torch.equal(bits(onehot_combine_bucketed(
+            P, plan.lr, bucket=plan.bucket, plan=cp)), bits(y)),
+            f"{tag}: K7's bits changed between calls")
+    nb = plan.nbuckets
+    lr = plan.lr.reshape(nb, -1).long()
+    keep = (lr >= 0) & (lr < plan.bucket) & (plan.cols_b.view(nb, -1) >= 0)
+    rows = (lr + plan.bucket * torch.arange(nb, device="cuda")[:, None])[keep]
+    exact = torch.zeros(y.numel(), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, rows, P.reshape(nb, -1).float()[keep].double())
+    c_err = float((y - exact).abs().max())
+    check(c_err <= 1e-5 * float(exact.abs().max()),
+          f"{tag}: K7 vs the exact sums max|err| {c_err:.3e}")
+    ym = plan.matvec(x)
+    expect = M.to_scipy().astype(np.float64) @ x.cpu().numpy().astype(
+        np.float64)
+    m_err = float(np.abs(ym.cpu().numpy() - expect).max())
+    check(m_err <= 1e-5 * np.abs(expect).max(),
+          f"{tag}: the matvec vs scipy max|err| {m_err:.3e}")
+    k2 = plan_gather_spmv(M).to("cuda", dtype)
+    dev_c = device_us(lambda: onehot_combine_bucketed(
+        P, plan.lr, bucket=plan.bucket, plan=cp))
+    dev_b = device_us(lambda: plan.matvec(x))
+    dev_k2 = device_us(lambda: gather_spmv(k2, x))
+    print(f"[10 bridged] {label} {str(dtype)[6:]}: nnz={M.nnz}, "
+          f"{plan.slots} slots, K7 tiers: {cp.block_rows.numel()} block "
+          f"rows, {cp.warp_rows.numel()} warp rows, order "
+          f"{'none' if cp.order is None else 'permuted'}; K7 bit-equal to "
+          f"plan order and bit-stable over 5 calls, max|err| vs exact "
+          f"{c_err:.3e}, matvec vs scipy {m_err:.3e}; device time (us a "
+          f"call): K7 {fmt_us(dev_c)}; matvec {fmt_us(dev_b)}; K2 "
+          f"{fmt_us(dev_k2)}; bridged/K2 "
+          f"{total_us(dev_b) / total_us(dev_k2):.2f}")
+
+
+def device_us(fn, reps: int = 50) -> dict:
+    """{kernel name: (launches a call, mean device µs a call)} of each
+    CUDA kernel that ``fn()`` launches, from ``torch.profiler`` over
+    ``reps`` calls (5 warm first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count // reps, e.device_time_total / reps)
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def total_us(times: dict) -> float:
+    return sum(us for _, us in times.values())
+
+
+def fmt_us(times: dict) -> str:
+    """``name µs`` for each kernel of :func:`device_us`: the function's
+    name, without namespace, template or parameters."""
+    def short(k):
+        k = k.replace("(anonymous namespace)::", "")
+        return k.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+    return ", ".join(f"{short(k)} {us:.2f}" for k, (_, us) in times.items())
 
 
 def phase_k4(seed: int):

@@ -20,7 +20,9 @@ layout, and the one-hot MXU combine ``onehot_combine_bucketed`` (K7).  The
 route exists on the TPU for want of a vector scatter; the port's plan stores
 the entries already in bucket-major slots, so the tier is two kernels:
 :func:`stream_gather` (P[j] = vals_b[j]·x[cols_b[j]], 0 in padding slots)
-and :func:`onehot_combine_bucketed` (y[b·bucket + LR] = Σ P, in float32).
+and :func:`onehot_combine_bucketed` (y[b·bucket + LR] = Σ P, in float32,
+each row added in a fixed order through a summation plan built once from
+LR: the same bits on every run).
 
 Each kernel is built with ``nvcc`` for sm_90a at first use (``_build.py``)
 and loaded with ctypes; it launches on the current CUDA stream and allocates
@@ -34,7 +36,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,9 +255,16 @@ BUCKET = 8192            # rows per combine bucket (the reference's 2^13)
 # column-sorted gather stream
 TILE = 1024
 PRECISIONS = ("split2", "highest", "default")
-# the combine keeps a bucket of float32 sums in one block's shared memory,
-# at most 227 KiB on the H100
-MAX_BUCKET = 232448 // 4
+# the largest bucket the tier takes: local rows are int32, and so are the
+# summation plan's bucket + 1 offsets a bucket
+MAX_BUCKET = 2**31 - 2
+# K7's summation order (csrc/bridged.cu): a row's products in chunks of
+# CHUNK, each added left to right, the chunk sums pairwise.  A thread sums a
+# row of at most THREAD_ROW products, a warp one of at most WARP_ROW, a
+# block of 256 threads a longer one.
+CHUNK = 8
+THREAD_ROW = 32
+WARP_ROW = 2048
 
 _GATHER_FNS = {
     (torch.float32, torch.int32): "el_stream_gather_f32_i32",
@@ -266,15 +277,116 @@ _COMBINE_FNS = {torch.float32: "el_combine_bucketed_f32",
 
 
 @dataclasses.dataclass
+class CombinePlan:
+    """K7's summation plan for one LR (``plan_combine``): bucket b's slots
+    that are summed, stably sorted by local row, are its list; row r's
+    products sit at list positions ``offsets[b, r]`` to ``offsets[b, r+1]``
+    and are added in K7's order over that list (``combine_in_plan_order``).
+    ``order[b, k]`` is the slot at list position k (int32, within the
+    bucket; positions past ``offsets[b, bucket]`` are unused), or None when
+    the list is the slots themselves.  Slots left out (a local row outside
+    [0, bucket), or padding the caller marked) are not summed.
+
+    The plan is bound to ``lr``, the LR it was built from: K7 refuses it
+    with any other tensor.  Building it (and :meth:`to`) checks that the
+    offsets and order stay inside the bucket, one device-to-host read, and
+    lists the rows the kernel gives a warp (``warp_rows``: more than
+    ``THREAD_ROW`` products, at most ``WARP_ROW``) or a block
+    (``block_rows``: more), as b·bucket + r in int64."""
+
+    bucket: int
+    offsets: torch.Tensor                   # (nbuckets, bucket + 1) int32
+    order: Optional[torch.Tensor]           # (nbuckets, per_bucket) int32
+    lr: torch.Tensor                        # (nbuckets, SUB, 8, 128) int32
+    warp_rows: torch.Tensor = dataclasses.field(init=False)
+    block_rows: torch.Tensor = dataclasses.field(init=False)
+
+    @property
+    def nbuckets(self) -> int:
+        return self.lr.shape[0]
+
+    @property
+    def per_bucket(self) -> int:
+        return math.prod(self.lr.shape[1:])
+
+    def __post_init__(self):
+        nb, per, bucket = self.nbuckets, self.per_bucket, self.bucket
+        arrays = (self.offsets, self.lr) + (
+            () if self.order is None else (self.order,))
+        if any(t.dtype != torch.int32 or not t.is_contiguous()
+               for t in arrays):
+            raise TypeError("CombinePlan: offsets, order and lr must be "
+                            "contiguous int32")
+        if any(t.device != self.lr.device for t in arrays):
+            raise ValueError("CombinePlan: offsets, order and lr are on "
+                             "different devices")
+        if self.offsets.shape != (nb, bucket + 1) or (
+                self.order is not None and self.order.shape != (nb, per)):
+            raise ValueError(f"CombinePlan: offsets {tuple(self.offsets.shape)}"
+                             f" and order must be ({nb}, {bucket + 1}) and "
+                             f"({nb}, {per})")
+        off = self.offsets.to(torch.int64)
+        length = off[:, 1:] - off[:, :-1]
+        bad = (off[:, 0] != 0).any() | (length < 0).any() | (
+            off[:, -1] > per).any()
+        if self.order is not None:
+            bad |= ((self.order < 0) | (self.order >= per)).any()
+        if bool(bad):
+            raise ValueError("CombinePlan: offsets must rise from 0 to at "
+                             "most the slots a bucket, and order must name "
+                             "slots of the bucket")
+        length = length.reshape(-1)
+        self.warp_rows = torch.nonzero(
+            (length > THREAD_ROW) & (length <= WARP_ROW)).reshape(-1)
+        self.block_rows = torch.nonzero(length > WARP_ROW).reshape(-1)
+
+    def to(self, device=None) -> "CombinePlan":
+        """A copy on ``device``, bound to ``lr`` moved there."""
+        return dataclasses.replace(
+            self, offsets=self.offsets.to(device),
+            order=None if self.order is None else self.order.to(device),
+            lr=self.lr.to(device))
+
+
+def plan_combine(LR: torch.Tensor, bucket: int = BUCKET,
+                 keep: Optional[torch.Tensor] = None) -> CombinePlan:
+    """K7's summation plan for ``LR`` (nbuckets, SUB, 8, 128) int32, built
+    with torch ops on LR's device and bound to it.  ``keep`` (LR's shape,
+    bool) marks the slots to sum (padding known to the caller left out); a
+    local row outside [0, bucket) is left out anyway.  The plan has no
+    ``order`` when each bucket's summed slots already come first and in
+    row order (one device-to-host read to find out)."""
+    nb, per = LR.shape[0], math.prod(LR.shape[1:])
+    if per >= 2**31:
+        raise ValueError(f"plan_combine: {per} slots a bucket; the plan's "
+                         f"positions are int32")
+    lr = LR.reshape(nb, per).to(torch.int64)
+    summed = (lr >= 0) & (lr < bucket)
+    if keep is not None:
+        summed &= keep.reshape(nb, per)
+    key = torch.where(summed, lr, bucket)
+    counts = torch.zeros(nb, bucket + 1, dtype=torch.int64, device=LR.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.zeros(nb, bucket + 1, dtype=torch.int32, device=LR.device)
+    torch.cumsum(counts[:, :bucket], 1, out=offsets[:, 1:])
+    order = None
+    if not bool((key[:, 1:] >= key[:, :-1]).all()):
+        order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    return CombinePlan(int(bucket), offsets, order, LR)
+
+
+@dataclasses.dataclass
 class BridgedPlan:
     """y = A·x as a stream gather into bucket-major slots, then a per-bucket
     combine.  Bucket b owns slots [b·sub·1024, (b+1)·sub·1024); a slot holds
     one entry (column ``cols_b``, value ``vals_b``, local row ``lr`` =
     row − b·bucket) or is padding (column -1, value 0, local row 0).
     ``cols_b`` follows the index-width rule; ``lr`` (below ``bucket``) is
-    int32.  ``precision`` is the reference's combine precision; the port
-    sums in plain float32 for every value of it.  y is float32 whatever the
-    values' dtype, as in the reference."""
+    int32.  ``combine`` is K7's summation plan of ``lr`` (bound to it) with
+    the padding left out, built once with the plan.  ``precision`` is the
+    reference's
+    combine precision; the port sums in plain float32 for every value of
+    it.  y is float32 whatever the values' dtype, as in the reference."""
 
     n_rows: int
     n_cols: int
@@ -287,6 +399,7 @@ class BridgedPlan:
     vals_b: torch.Tensor     # (slots,)
     lr: torch.Tensor         # (nbuckets, sub, 8, 128)
     col_max: int
+    combine: CombinePlan
 
     @property
     def slots(self) -> int:
@@ -295,14 +408,17 @@ class BridgedPlan:
     def to(self, device=None, dtype=None) -> "BridgedPlan":
         """A copy on ``device`` with values in ``dtype`` (either kept when
         None)."""
+        combine = self.combine.to(device)
         return dataclasses.replace(
             self, cols_b=self.cols_b.to(device),
-            vals_b=self.vals_b.to(device, dtype), lr=self.lr.to(device))
+            vals_b=self.vals_b.to(device, dtype), lr=combine.lr,
+            combine=combine)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         P = stream_gather(self, x).view(self.lr.shape)
         y = onehot_combine_bucketed(P, self.lr, bucket=self.bucket,
-                                    precision=self.precision)
+                                    precision=self.precision,
+                                    plan=self.combine)
         return y[:self.n_rows]
 
     @classmethod
@@ -338,15 +454,16 @@ def _make_bridged(n_rows: int, n_cols: int, nnz: int, bucket: int,
                   precision: str, cols_b: np.ndarray, vals_b: np.ndarray,
                   lr: np.ndarray) -> BridgedPlan:
     """Host plan from bucket-major slot arrays; ``lr`` is (nbuckets, sub,
-    8, 128)."""
+    8, 128).  K7's summation plan leaves the padding slots out."""
     nbuckets, sub = int(lr.shape[0]), int(lr.shape[1])
     idt = index_dtype(max(cols_b.shape[0], n_cols))
+    cols = torch.from_numpy(np.ascontiguousarray(cols_b, idt))
+    LR = torch.from_numpy(np.array(lr, index_dtype(bucket)))
     return BridgedPlan(
         int(n_rows), int(n_cols), int(nnz), nbuckets, sub, int(bucket),
-        precision, torch.from_numpy(np.ascontiguousarray(cols_b, idt)),
-        torch.from_numpy(np.ascontiguousarray(vals_b)),
-        torch.from_numpy(np.array(lr, index_dtype(bucket))),
-        int(cols_b.max()) if cols_b.size else -1)
+        precision, cols, torch.from_numpy(np.ascontiguousarray(vals_b)), LR,
+        int(cols_b.max()) if cols_b.size else -1,
+        plan_combine(LR, int(bucket), keep=cols.view(LR.shape) >= 0))
 
 
 def plan_bridged_spmv(A, bucket: int = BUCKET,
@@ -396,8 +513,9 @@ def _bridged_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _COMBINE_FNS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -426,6 +544,9 @@ def _check_gather(plan: BridgedPlan, x: torch.Tensor) -> None:
     if any(t.numel() != plan.slots for t in arrays):
         raise ValueError("stream_gather: plan arrays do not match its "
                          "slot count")
+    if any(t.data_ptr() % 16 for t in arrays):
+        raise ValueError("stream_gather: cols_b and vals_b must be 16-byte "
+                         "aligned")
     if x.numel() != plan.n_cols or plan.col_max >= plan.n_cols:
         raise IndexError(f"stream_gather: x has {x.numel()} entries; the "
                          f"plan has {plan.n_cols} columns and reads column "
@@ -473,8 +594,51 @@ def onehot_combine_bucketed_plain(P: torch.Tensor, LR: torch.Tensor,
     return y.index_add_(0, idx, P.reshape(-1).to(torch.float32))
 
 
+def combine_in_plan_order(P: torch.Tensor, plan: CombinePlan) -> torch.Tensor:
+    """K7's sums in the kernel's own order, in plain PyTorch: each row's
+    products (as float32) in plan order, cut into chunks of ``CHUNK`` from
+    the row's first, each chunk added left to right from +0, then the chunk
+    sums pairwise, level by level (a lone last node passes up).  The
+    kernel's y equals this bit for bit; it is a reference for the tests."""
+    nb, per = plan.nbuckets, plan.per_bucket
+    dev = P.device
+    p = P.reshape(nb, per).to(torch.float32)
+    if plan.order is not None:
+        p = p.gather(1, plan.order.to(torch.int64))
+    off = plan.offsets.to(torch.int64)
+    start = (off[:, :-1] + per * torch.arange(nb, device=dev)[:, None]
+             ).reshape(-1)
+    length = (off[:, 1:] - off[:, :-1]).reshape(-1)
+    rows = start.numel()
+    # the chunks: row, index within the row, first list position, length
+    m = (length + CHUNK - 1) // CHUNK
+    row = torch.repeat_interleave(torch.arange(rows, device=dev), m)
+    first = torch.cumsum(m, 0) - m
+    q = torch.arange(row.numel(), device=dev) - first[row]
+    pos = start[row] + CHUNK * q
+    cnt = (length[row] - CHUNK * q).clamp(max=CHUNK)
+    flat = p.reshape(-1)
+    s = torch.zeros(row.numel(), dtype=torch.float32, device=dev)
+    for i in range(CHUNK):
+        v = flat[(pos + i).clamp(max=max(flat.numel() - 1, 0))]
+        s = torch.where(cnt > i, s + v, s)
+    # pairwise: node q of a level is the sum of nodes 2q and 2q + 1 below
+    # (index_add_ of at most two terms into +0: the same bits either way)
+    while bool((m > 1).any()):
+        m = (m + 1) // 2
+        first = torch.cumsum(m, 0) - m
+        q = q // 2
+        s = torch.zeros(int(m.sum()), dtype=torch.float32,
+                        device=dev).index_add_(0, first[row] + q, s)
+        keep = torch.ones(row.numel(), dtype=torch.bool, device=dev)
+        keep[1:] = (row[1:] != row[:-1]) | (q[1:] != q[:-1])
+        row, q = row[keep], q[keep]
+    y = torch.zeros(rows, dtype=torch.float32, device=dev)
+    return y.index_copy_(0, row, s)
+
+
 def _check_combine(P: torch.Tensor, LR: torch.Tensor, bucket: int,
-                   precision: str) -> None:
+                   precision: str, plan: Optional[CombinePlan]) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"onehot_combine_bucketed: precision must be one "
                          f"of {PRECISIONS}, got {precision!r}")
@@ -495,35 +659,64 @@ def _check_combine(P: torch.Tensor, LR: torch.Tensor, bucket: int,
     if not 1 <= bucket <= MAX_BUCKET:
         raise ValueError(f"onehot_combine_bucketed: bucket {bucket} "
                          f"outside [1, {MAX_BUCKET}]")
+    if plan is None:
+        return
+    nb = P.shape[0]
+    if (plan.nbuckets, plan.per_bucket, plan.bucket) != (
+            nb, math.prod(P.shape[1:]), bucket):
+        raise ValueError(f"onehot_combine_bucketed: the plan is for "
+                         f"{plan.nbuckets} buckets of {plan.per_bucket} slots "
+                         f"and {plan.bucket} rows, not P {tuple(P.shape)} at "
+                         f"bucket {bucket}")
+    if plan.lr.device != P.device:
+        raise ValueError("onehot_combine_bucketed: P and the plan are on "
+                         "different devices")
+    if plan.lr.data_ptr() != LR.data_ptr() or plan.lr.shape != LR.shape:
+        raise ValueError("onehot_combine_bucketed: the plan was built from "
+                         "another LR")
 
 
 def onehot_combine_bucketed(P: torch.Tensor, LR: torch.Tensor,
-                            bucket: int = BUCKET,
-                            precision: str = "split2") -> torch.Tensor:
+                            bucket: int = BUCKET, precision: str = "split2",
+                            plan: Optional[CombinePlan] = None
+                            ) -> torch.Tensor:
     """K7: y[b·bucket + LR[b, ...]] = Σ P[b, ...] over each bucket, y of
     length nbuckets·bucket in float32.  P is float32 or float64 and LR
     int32, both (nbuckets, SUB, 8, 128).  ``precision`` is accepted for the
-    reference's contract; every value of it is a plain float32 sum.  The
-    kernel skips a local row outside [0, bucket) (the plain version
-    raises); its shared atomics sum in no fixed order, so y is not
-    bit-identical from run to run.
+    reference's contract; every value of it is a plain float32 sum.
 
-    CPU tensors: the plain version.  CUDA tensors: the K7 kernel, or an
-    exception.  ``onehot_combine_bucketed.launches`` counts kernel
-    launches."""
-    _check_combine(P, LR, bucket, precision)
+    The kernel adds each row's products in a fixed order over the plan's
+    list, chunks of ``CHUNK`` left to right and the chunk sums pairwise
+    (``combine_in_plan_order`` gives the same bits), so y's bits depend only
+    on P and the plan, never on the run; it skips a local row outside
+    [0, bucket) (the plain version raises).  ``plan`` is LR's summation plan
+    (:func:`plan_combine`, bound to this LR; a ``BridgedPlan`` carries
+    one).  Without it the wrapper builds one from LR on the card on every
+    call, a sort of LR that costs more time than the kernel itself; that
+    plan sums the padding slots too, which changes no bits where a row's
+    padding follows its products (``plan_bridged_spmv``'s layout).
+
+    CPU tensors: the plain version (``plan`` is checked, not used).  CUDA
+    tensors: the K7 kernel, or an exception.
+    ``onehot_combine_bucketed.launches`` counts kernel launches."""
+    _check_combine(P, LR, bucket, precision, plan)
     if P.device.type == "cpu":
         return onehot_combine_bucketed_plain(P, LR, bucket)
     if P.device.type != "cuda":
         raise ValueError(f"onehot_combine_bucketed: no kernel for device "
                          f"{P.device}")
+    if plan is None:
+        plan = plan_combine(LR, bucket)
     nb = P.shape[0]
     fn = getattr(_bridged_lib(), _COMBINE_FNS[P.dtype])
     y = torch.empty(nb * bucket, dtype=torch.float32, device=P.device)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        rc = fn(P.data_ptr(), LR.data_ptr(), y.data_ptr(), nb,
-                P[0].numel() if nb else 0, bucket, stream)
+        rc = fn(P.data_ptr(), plan.offsets.data_ptr(),
+                None if plan.order is None else plan.order.data_ptr(),
+                plan.block_rows.data_ptr(), plan.block_rows.numel(),
+                plan.warp_rows.data_ptr(), plan.warp_rows.numel(),
+                y.data_ptr(), nb, plan.per_bucket, bucket, stream)
     if rc != 0:
         raise RuntimeError(f"onehot_combine_bucketed: kernel launch failed "
                            f"with CUDA error {rc}")

@@ -26,9 +26,9 @@ from elemental_tpu_torch.kernels.spmv import (stencil_spmv,
                                               stencil_spmv_from_csr,
                                               stencil_spmv_plain)
 from elemental_tpu_torch.kernels.unstructured import (
-    gather_spmv, gather_spmv_plain, onehot_combine_bucketed,
-    onehot_combine_bucketed_plain, plan_bridged_spmv, plan_gather_spmv,
-    stream_gather, stream_gather_plain)
+    _make_bridged, combine_in_plan_order, gather_spmv, gather_spmv_plain,
+    onehot_combine_bucketed, onehot_combine_bucketed_plain, plan_bridged_spmv,
+    plan_combine, plan_gather_spmv, stream_gather, stream_gather_plain)
 from elemental_tpu_torch.lapack import cg
 from elemental_tpu_torch.matrices import (concat_fd_2d, sparse_laplacian_2d,
                                           sparse_laplacian_3d)
@@ -412,8 +412,8 @@ def _bridged(A, bucket, index_dtype, device, dtype):
 @pytest.mark.parametrize("bucket", [1024, 8192, 16384])
 def test_bridged_kernels_match_plain(cuda, dtype, index_dtype, bucket):
     """The stream gather equals its plain version exactly (one product a
-    slot); K7 sums in float32 in no fixed order: within 1e-5·max|y| of
-    ``index_add_`` (16384 rows take 64 KiB of dynamic shared memory)."""
+    slot); K7 sums each row in its fixed order: bit-equal to
+    ``combine_in_plan_order``, and within 1e-5·max|y| of ``index_add_``."""
     A = _random_csr(20000, 7, seed=3, width=23000)
     plan = _bridged(A, bucket, index_dtype, cuda, dtype)
     assert plan.cols_b.dtype == index_dtype and plan.nbuckets >= 2
@@ -430,9 +430,112 @@ def test_bridged_kernels_match_plain(cuda, dtype, index_dtype, bucket):
             onehot_combine_bucketed.launches - counts[1]) == (1, 1)
     assert y.dtype == torch.float32 and y.shape == ref.shape
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(_bits(y), _bits(combine_in_plan_order(
+        P, plan.combine)))
     expect = A.to_scipy() @ x.cpu().numpy().astype(np.float64)
     got = plan.matvec(x).cpu().numpy()
     assert np.abs(got - expect).max() <= 1e-5 * np.abs(expect).max()
+
+
+def _shuffled(plan, seed):
+    """``plan`` (on the host) with its slots shuffled within each bucket."""
+    nb, per = plan.nbuckets, plan.combine.per_bucket
+    rng = np.random.default_rng(seed)
+    perm = (np.argsort(rng.random((nb, per)), axis=1)
+            + per * np.arange(nb)[:, None]).reshape(-1)
+    return _make_bridged(plan.n_rows, plan.n_cols, plan.nnz, plan.bucket,
+                         plan.precision, plan.cols_b.numpy()[perm],
+                         plan.vals_b.numpy()[perm],
+                         plan.lr.numpy().reshape(-1)[perm].reshape(
+                             plan.lr.shape))
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bucket", [1024, 8192])
+def test_bridged_bits_are_stable(cuda, bucket, dtype, shuffle):
+    """K7 and ``BridgedPlan.matvec`` give the same bits (as int32) on 10
+    calls, on the port's row-ordered slots and on slots shuffled within
+    each bucket; K7 without a plan (built from LR on each call, padding
+    included) gives the bits of the same plan prebuilt, and on the
+    row-ordered slots (padding after row 0) those of the matvec's plan;
+    ``combine_in_plan_order`` on the card gives the plan's bits."""
+    A = _random_csr(30000, 9, seed=5, width=26000)
+    host = plan_bridged_spmv(A, bucket=bucket)
+    if shuffle:
+        host = _shuffled(host, 11)
+    assert (host.combine.order is not None) == shuffle
+    plan = host.to(cuda, dtype)
+    x = torch.randn(A.width, generator=torch.Generator(device=cuda)
+                    .manual_seed(1), device=cuda, dtype=dtype)
+    P = stream_gather(plan, x).view(plan.lr.shape)
+    y0 = _bits(onehot_combine_bucketed(P, plan.lr, bucket=bucket,
+                                       plan=plan.combine))
+    m0 = _bits(plan.matvec(x))
+    for _ in range(9):
+        assert torch.equal(_bits(onehot_combine_bucketed(
+            P, plan.lr, bucket=bucket, plan=plan.combine)), y0)
+        assert torch.equal(_bits(plan.matvec(x)), m0)
+    bare = _bits(onehot_combine_bucketed(P, plan.lr, bucket=bucket))
+    assert torch.equal(bare, _bits(onehot_combine_bucketed(
+        P, plan.lr, bucket=bucket, plan=plan_combine(plan.lr, bucket))))
+    if not shuffle:
+        assert torch.equal(bare, y0)
+    assert torch.equal(_bits(combine_in_plan_order(P, plan.combine)), y0)
+    assert torch.equal(m0, y0[:A.height])
+    expect = A.to_scipy() @ x.cpu().numpy().astype(np.float64)
+    got = plan.matvec(x).cpu().numpy()
+    assert np.abs(got - expect).max() <= 1e-5 * np.abs(expect).max()
+
+
+@pytest.mark.parametrize("sorted_slots", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_rows_of_every_tier(cuda, dtype, sorted_slots):
+    """Rows for K7's thread, warp and block tiers (1 to 70,000 products in
+    one bucket of 4,096 rows, empty rows and rows outside the bucket
+    among them): bit-equal to ``combine_in_plan_order``, the same bits on
+    10 calls, within 1e-5·max|y| of the exact sums."""
+    rng = np.random.default_rng(8)
+    nb, sub, bucket = 3, 96, 4096
+    per = sub * 1024
+    # bucket 0: even rows of ~48 products, odd rows empty; bucket 1: rows
+    # 0, 7, ..., 49 of the lengths below, the other slots on rows >= 64;
+    # bucket 2: ~24 products a row, 2 % of the slots outside the bucket
+    lr = np.stack([2 * rng.integers(0, bucket // 2, per),
+                   rng.integers(64, bucket, per),
+                   rng.integers(0, bucket, per)])
+    lengths = [70000, 9000, 2049, 2048, 2047, 700, 33, 32]
+    pick = rng.permutation(per)[:sum(lengths)]
+    lr[1, pick] = np.repeat(np.arange(len(lengths)) * 7, lengths)
+    lr[2, rng.random(per) < 0.01] = -1
+    lr[2, rng.random(per) < 0.01] = bucket
+    if sorted_slots:                        # row order, the rest last
+        key = np.where((lr >= 0) & (lr < bucket), lr, bucket)
+        lr = np.take_along_axis(lr, np.argsort(key, axis=1, kind="stable"),
+                                1)
+    LR = torch.from_numpy(lr.astype(np.int32).reshape(nb, sub, 8, 128)).to(
+        cuda)
+    P = torch.from_numpy(rng.standard_normal((nb, sub, 8, 128))).to(
+        cuda, dtype)
+    cp = plan_combine(LR, bucket)
+    assert (cp.order is None) == sorted_slots
+    assert cp.block_rows.tolist() == [4096, 4096 + 7, 4096 + 14]
+    assert {4096 + 21, 4096 + 28, 4096 + 35, 4096 + 42} <= set(
+        cp.warp_rows.tolist())
+    y = onehot_combine_bucketed(P, LR, bucket=bucket, plan=cp)
+    assert torch.equal(_bits(y), _bits(combine_in_plan_order(P, cp)))
+    for _ in range(9):
+        assert torch.equal(_bits(onehot_combine_bucketed(
+            P, LR, bucket=bucket, plan=cp)), _bits(y))
+    # the exact sums, in float64 (a float32 index_add_ over 70,000 terms is
+    # itself off by ~1e-5·max|y|)
+    keep = ((LR >= 0) & (LR < bucket)).reshape(nb, -1)
+    rows = (LR.reshape(nb, -1).long()
+            + bucket * torch.arange(nb, device=cuda)[:, None])[keep]
+    ref = torch.zeros(nb * bucket, dtype=torch.float64, device=cuda)
+    ref.index_add_(0, rows, P.reshape(nb, -1).to(torch.float32)[keep]
+                   .double())
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_bridged_padding_with_inf_in_x(cuda):
@@ -496,7 +599,18 @@ def test_bridged_wrappers_refuse_bad_inputs(cuda):
         onehot_combine_bucketed(P.transpose(2, 3).contiguous().transpose(
             2, 3), plan.lr, 1024)
     with pytest.raises(ValueError, match="bucket"):
-        onehot_combine_bucketed(P, plan.lr, 10**6)
+        onehot_combine_bucketed(P, plan.lr, 2**31)
+    with pytest.raises(ValueError, match="different devices"):
+        onehot_combine_bucketed(P, plan.lr, 1024, plan=plan.combine.to("cpu"))
+    with pytest.raises(ValueError, match="the plan is for"):
+        onehot_combine_bucketed(P, plan.lr, 2048, plan=plan.combine)
+    with pytest.raises(ValueError, match="another LR"):
+        onehot_combine_bucketed(P, plan.lr.clone(), 1024, plan=plan.combine)
+    with pytest.raises(ValueError, match="16-byte"):
+        stream_gather(dataclasses.replace(
+            plan, cols_b=torch.empty(plan.slots + 1, dtype=torch.int32,
+                                     device=cuda)[1:],
+            vals_b=torch.empty(plan.slots + 1, device=cuda)[1:]), x)
 
 
 # -- K4 and K5 ---------------------------------------------------------------

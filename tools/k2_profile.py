@@ -1,74 +1,185 @@
 #!/usr/bin/env python3
-"""Device time of each CUDA kernel behind one K2 product (``gather_spmv``)
-and behind cuSPARSE's product of the same matrix, from ``torch.profiler``,
-on the n = 2^20 matrices of ``chip_smoke.py`` phase 8 (uniform d = 10 and
-the skewed zipf rows), in float32 and float64.
+"""Device time of each CUDA kernel behind one sparse product, from
+``torch.profiler``, in float32 and float64, on the matrices of
+``chip_smoke.py``:
 
-    python3 tools/k2_profile.py [--repo DIR] [--reps 50] [--seed 0]
+- ``k2``: K2 (``gather_spmv``) and cuSPARSE's CSR product on the n = 2^20
+  matrices of phase 8 (uniform d = 10 and the skewed zipf rows);
+- ``k3``: K3 (``stencil_spmv``) and cuSPARSE's CSR product on phase 6's
+  1024² Laplacian/8 and 128³ Laplacian;
+- ``bridged``: on phase 8's uniform matrix, the bridged tier's stream
+  gather, K7 (with the plan's summation plan where the tree has one) and
+  the whole ``BridgedPlan.matvec``, beside K2; and, to show what bounds
+  the gather, the gather over the same bytes with x read in slot order,
+  and the gather and K7 with each bucket's slots sorted by column; then
+  the gather, K7, the matvec and K2 on phase 8's skewed zipf matrix and
+  on the uniform matrix with its slots shuffled within each bucket.
+
+    python3 tools/k2_profile.py [--repo DIR] [--cases k2,k3,bridged]
+                                [--reps 50] [--seed 0]
 
 ``--repo`` names the checkout whose ``elemental_tpu_torch`` is profiled (by
 default this one; another tree unpacked with ``git archive`` profiles its
-kernel in the same call).  Prints, per matrix and dtype, each kernel's
-name, its launches and its mean device microseconds a product; needs one
-CUDA card.
+kernels in the same call).  Prints, per matrix, dtype and product, each
+kernel's name, its launches and its mean device microseconds a product;
+needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def profile_products(label, products, reps):
+    """Print each kernel's launches and device µs a call for each
+    (name, fn) of ``products``."""
+    import chip_smoke as cs
+    print(label)
+    for name, fn in products:
+        for key, (count, us) in cs.device_us(fn, reps).items():
+            print(f"  {name}: {key[:72]} x{count} {us:.2f} us a product")
+
+
+def cusparse(M, dtype):
+    import torch
+    A = M.to_scipy()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr).to("cuda", torch.int32),
+        torch.from_numpy(A.indices).to("cuda", torch.int32),
+        torch.from_numpy(A.data).to("cuda", dtype), size=A.shape)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=HERE,
                     help="checkout whose elemental_tpu_torch is profiled")
+    ap.add_argument("--cases", default="k2",
+                    help="comma-separated: k2, k3, bridged")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    cases = args.cases.split(",")
+    if not set(cases) <= {"k2", "k3", "bridged"}:
+        ap.error(f"unknown cases {args.cases!r}")
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     sys.path.insert(0, os.path.abspath(args.repo))
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("k2_profile: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
     import elemental_tpu_torch
-    from elemental_tpu_torch.kernels.unstructured import (gather_spmv,
-                                                          plan_gather_spmv)
+    from elemental_tpu_torch.kernels.spmv import stencil_spmv
+    from elemental_tpu_torch.kernels.unstructured import (
+        _make_bridged, gather_spmv, onehot_combine_bucketed,
+        plan_bridged_spmv, plan_gather_spmv, stream_gather)
+    from elemental_tpu_torch.matrices import (sparse_laplacian_2d,
+                                              sparse_laplacian_3d)
+    from elemental_tpu_torch.sparse import plan_spmv
     cs.phase_card()
     print(f"port: {os.path.dirname(elemental_tpu_torch.__file__)}")
-    for label, M in (("uniform d=10", cs.random_d10(args.seed)),
-                     ("skewed zipf", cs.skewed_zipf(args.seed))):
-        host = plan_gather_spmv(M)
-        A = M.to_scipy()
-        for dtype in (torch.float32, torch.float64):
-            plan = host.to("cuda", dtype)
+    dtypes = (torch.float32, torch.float64)
+    if "k2" in cases:
+        for label, M in (("uniform d=10", cs.random_d10(args.seed)),
+                         ("skewed zipf", cs.skewed_zipf(args.seed))):
+            host = plan_gather_spmv(M)
+            for dtype in dtypes:
+                plan = host.to("cuda", dtype)
+                x = torch.randn(M.width, device="cuda", dtype=dtype)
+                csr = cusparse(M, dtype)
+                profile_products(
+                    f"{label} {str(dtype)[6:]}: nnz={M.nnz}",
+                    (("K2", lambda: gather_spmv(plan, x)),
+                     ("cuSPARSE", lambda: csr @ x)), args.reps)
+                del plan, x, csr
+    if "k3" in cases:
+        A2 = sparse_laplacian_2d(1024, 1024, scaled=False)
+        for label, M in (("1024^2 Laplacian/8",
+                          A2.change_nonzero_values(A2.vals / 8.0)),
+                         ("128^3 Laplacian",
+                          sparse_laplacian_3d(128, 128, 128, scaled=False))):
+            host = plan_spmv(M)
+            for dtype in dtypes:
+                st = host.to("cuda", dtype).stencil
+                x = torch.randn(M.width, device="cuda", dtype=dtype)
+                csr = cusparse(M, dtype)
+                profile_products(
+                    f"{label} {str(dtype)[6:]}: nnz={M.nnz}",
+                    (("K3", lambda: stencil_spmv(st, x)),
+                     ("cuSPARSE", lambda: csr @ x)), args.reps)
+                del st, x, csr
+    if "bridged" in cases:
+        M = cs.random_d10(args.seed)
+        host, k2_host = plan_bridged_spmv(M), plan_gather_spmv(M)
+        # the same plan with each bucket's slots sorted by column (padding
+        # last), so that a warp's reads of x ascend; K7 then sums through a
+        # permutation
+        nb, per = host.nbuckets, host.slots // host.nbuckets
+        cb = host.cols_b.numpy().reshape(nb, per)
+        perm = (np.argsort(np.where(cb >= 0, cb, np.iinfo(np.int64).max),
+                           axis=1, kind="stable")
+                + per * np.arange(nb)[:, None]).reshape(-1)
+        by_col = _make_bridged(host.n_rows, host.n_cols, host.nnz,
+                               host.bucket, host.precision,
+                               host.cols_b.numpy()[perm],
+                               host.vals_b.numpy()[perm],
+                               host.lr.numpy().reshape(-1)[perm].reshape(
+                                   host.lr.shape))
+        for dtype in dtypes:
+            bp, k2 = host.to("cuda", dtype), k2_host.to("cuda", dtype)
             x = torch.randn(M.width, device="cuda", dtype=dtype)
-            csr = torch.sparse_csr_tensor(
-                torch.from_numpy(A.indptr).to("cuda", torch.int32),
-                torch.from_numpy(A.indices).to("cuda", torch.int32),
-                torch.from_numpy(A.data).to("cuda", dtype), size=A.shape)
-            print(f"{label} {str(dtype)[6:]}: nnz={M.nnz}")
-            for name, fn in (("K2", lambda: gather_spmv(plan, x)),
-                             ("cuSPARSE", lambda: csr @ x)):
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(args.reps):
-                        fn()
-                    torch.cuda.synchronize()
-                for e in prof.key_averages():
-                    if e.device_time_total > 0:
-                        print(f"  {name}: {e.key[:72]} x{e.count // args.reps}"
-                              f" {e.device_time_total / args.reps:.2f} us a "
-                              f"product")
-            del plan, x, csr
+            P = stream_gather(bp, x).view(bp.lr.shape)
+            # the summation plan, where this tree's plans carry one
+            kw = ({"plan": bp.combine} if hasattr(bp, "combine") else {})
+            # the same bytes with x read in slot order, not at random
+            seq = dataclasses.replace(bp, cols_b=torch.arange(
+                bp.slots, device="cuda", dtype=bp.cols_b.dtype) % M.width)
+            bc = by_col.to("cuda", dtype)
+            Pc = stream_gather(bc, x).view(bc.lr.shape)
+            kwc = ({"plan": bc.combine} if hasattr(bc, "combine") else {})
+            profile_products(
+                f"bridged uniform d=10 {str(dtype)[6:]}: nnz={M.nnz}, "
+                f"{bp.slots} slots",
+                (("stream gather", lambda: stream_gather(bp, x)),
+                 ("stream gather, x read in order",
+                  lambda: stream_gather(seq, x)),
+                 ("K7", lambda: onehot_combine_bucketed(
+                     P, bp.lr, bucket=bp.bucket, **kw)),
+                 ("matvec", lambda: bp.matvec(x)),
+                 ("stream gather, slots by column",
+                  lambda: stream_gather(bc, x)),
+                 ("K7, slots by column", lambda: onehot_combine_bucketed(
+                     Pc, bc.lr, bucket=bc.bucket, **kwc)),
+                 ("K2", lambda: gather_spmv(k2, x))), args.reps)
+            del bp, k2, x, P, seq, bc, Pc
+        # rows of every length, and the uniform matrix's slots shuffled
+        # within each bucket (K7 through a permutation)
+        S = cs.skewed_zipf(args.seed)
+        for label, M, host in (
+                ("skewed zipf", S, plan_bridged_spmv(S)),
+                ("uniform d=10, shuffled slots", M, cs.shuffled(host,
+                                                                args.seed))):
+            k2_host = plan_gather_spmv(M)
+            for dtype in dtypes:
+                bp, k2 = host.to("cuda", dtype), k2_host.to("cuda", dtype)
+                x = torch.randn(M.width, device="cuda", dtype=dtype)
+                P = stream_gather(bp, x).view(bp.lr.shape)
+                kw = ({"plan": bp.combine} if hasattr(bp, "combine") else {})
+                profile_products(
+                    f"bridged {label} {str(dtype)[6:]}: nnz={M.nnz}, "
+                    f"{bp.slots} slots",
+                    (("stream gather", lambda: stream_gather(bp, x)),
+                     ("K7", lambda: onehot_combine_bucketed(
+                         P, bp.lr, bucket=bp.bucket, **kw)),
+                     ("matvec", lambda: bp.matvec(x)),
+                     ("K2", lambda: gather_spmv(k2, x))), args.reps)
+                del bp, k2, x, P
     return 0
 
 
