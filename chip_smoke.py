@@ -8,10 +8,10 @@ Phases, each printing at least one line and each fatal when it fails:
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: K1 (``csrc/extend_add.cu``), K2 (``csrc/csr_spmv.cu``), K3
    (``csrc/stencil_spmv.cu``), the bridged tier's stream gather and K7
-   (``csrc/bridged.cu``), K4's SIMT kernel and K5 (``csrc/matmul.cu``),
-   K4's wgmma, dmma and ffma kernels (``csrc/matmul_sm90.cu``) and K6
-   (``csrc/elementwise.cu``), one nvcc each for sm_90a, all started
-   together;
+   (``csrc/bridged.cu``), K4's and K5's SIMT kernels (``csrc/matmul.cu``),
+   K4's wgmma, dmma and ffma kernels and K5's ffma and dmma kernels
+   (``csrc/matmul_sm90.cu``) and K6 (``csrc/elementwise.cu``), one nvcc
+   each for sm_90a, all started together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
    plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
    two kernel runs bit-equal, with the time of one whole factor's
@@ -54,8 +54,13 @@ Phases, each printing at least one line and each fatal when it fails:
     TFLOP/s, the fraction of the bound, kernel/cuBLAS, and the SIMT
     kernel's time at 4096³ beside the new path's;
 12. K5 ``masked_rank_k_update`` at m = n = 4096, k = 128 (the default
-    blocksize), lower and upper, float32 and float64: the triangle against
-    the plain version, the rest bit-equal to c;
+    blocksize), lower and upper, through the ffma (float32) and dmma
+    (float64) paths, and at 4096×4094 float32 with k = 127 through the SIMT
+    path (each asserted by its counter): the triangle against the plain
+    version, the rest bit-equal to c, the bits equal on a second call; the
+    fraction of the bound, and at 4096² the SIMT kernel and
+    ``torch.addmm`` over the whole square beside it, in event time and in
+    device time (``torch.profiler``);
 13. K6 ``axpy``, ``scale``, ``hadamard``, ``copy``, ``fill`` and
     ``transpose`` on 8192² float32 (``transpose`` also on 8192×4096)
     against their plain versions (torch's own kernels), with GB/s and
@@ -156,8 +161,8 @@ def phase_build():
               ("K2 gather_spmv", unstructured.build),
               ("K3 stencil_spmv", spmv.build),
               ("stream gather + K7 combine", unstructured.build_bridged),
-              ("K4 simt + K5 masked_rank_k_update", matmul.build),
-              ("K4 wgmma + dmma + ffma", matmul.build_sm90),
+              ("K4 simt + K5 simt", matmul.build),
+              ("K4 wgmma + dmma + ffma, K5 ffma + dmma", matmul.build_sm90),
               ("K6 elementwise", elementwise.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -969,53 +974,110 @@ def bits(t):
 
 
 def phase_k5(seed: int):
-    """K5 at m = n = 4096, k = 128: the trailing update of a blocked
-    Cholesky (C − L·Lᵀ) at the library's default blocksize."""
+    """K5 at m = n = 4096, k = 128 (the trailing update of a blocked
+    Cholesky, C − L·Lᵀ, at the library's default blocksize), lower and
+    upper, through the ffma (float32) and dmma (float64) paths, and at
+    4096×4094 float32 with k = 127 (off the 16-byte vectors: the SIMT
+    path), each asserted by its counter.  Each against the plain version
+    (TF32 off), the other triangle bit-equal to c, the same bits on a second
+    call; at 4096² the SIMT kernel on the same operands (held to the same
+    checks) and ``torch.addmm`` over the whole square beside it, in event
+    time and in device time."""
     import torch
-    from elemental_tpu_torch.kernels.matmul import (
-        masked_rank_k_update, masked_rank_k_update_plain)
+    from elemental_tpu_torch.kernels import matmul as mm
+    torch.backends.cuda.matmul.allow_tf32 = False
     n, k = 4096, 128
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = torch.arange(n, device="cuda")[:, None]
-    cols = torch.arange(n, device="cuda")[None, :]
-    launches, out = 0, None
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        c = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
-        a = torch.randn(n, k, generator=gen, device="cuda", dtype=dtype)
-        b = torch.randn(k, n, generator=gen, device="cuda", dtype=dtype)
-        for lower in (True, False):
-            mask = rows >= cols if lower else rows <= cols
-            masked_rank_k_update.launches = 0
-            o = masked_rank_k_update(c, a, b, alpha=-1.0, lower=lower)
-            torch.cuda.synchronize()
-            check(masked_rank_k_update.launches == 1,
-                  f"K5: {masked_rank_k_update.launches} launches")
-            launches += 1
-            ref = masked_rank_k_update_plain(c, a, b, alpha=-1.0,
-                                             lower=lower)
-            err = float((o - ref).abs().max())
-            scale = float(ref.abs().max())
-            check(err <= tol * scale, f"K5 {dtype} lower={lower}: max|err| "
-                  f"{err:.3e} > {tol:g}·max|C| ({scale:.3e})")
-            check(torch.equal(bits(o)[~mask], bits(c)[~mask]),
-                  f"K5 {dtype} lower={lower}: the other triangle is not c")
-            ms, plain_ms = time_pair(
-                lambda: masked_rank_k_update(c, a, b, -1.0, lower),
-                lambda: masked_rank_k_update_plain(c, a, b, -1.0, lower),
-                reps=20)
-            print(f"[12 K5] {n}x{n} rank {k} {str(dtype)[6:]} "
-                  f"{'lower' if lower else 'upper'}: max|err| vs plain "
-                  f"{err:.3e} (max|C| {scale:.3e}), other triangle bit-equal "
-                  f"to c; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over "
-                  f"20 launches")
-            if out is None:
-                # c read and out written whole, a and b read once; the
-                # triangle's product is n(n+1)/2 dot products of length k
-                item = c.element_size()
-                out = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound(
-                    (2 * n * n + 2 * n * k) * item, k * n * (n + 1.0),
-                    str(dtype)[6:]))
-        del c, a, b
+
+    def operands(m, kk, nn, dtype):
+        return tuple(torch.randn(*shape, generator=gen, device="cuda",
+                                 dtype=dtype)
+                     for shape in ((m, nn), (m, kk), (kk, nn)))
+
+    cases = []
+    for dtype, path, tol in ((torch.float32, "ffma", 1e-5),
+                             (torch.float64, "dmma", 1e-12)):
+        ops = operands(n, k, n, dtype)
+        cases += [(f"{n}x{n} rank {k}", dtype, path, tol, lower, *ops)
+                  for lower in (True, False)]
+    cases.append((f"{n}x{n - 2} rank {k - 1}", torch.float32, "simt", 1e-5,
+                  True, *operands(n, k - 1, n - 2, torch.float32)))
+
+    # the main path: each update once through the wrapper, each launch
+    # counted by its path
+    counter = mm.masked_rank_k_update
+    counter.launches = 0
+    counter.launches_by_path = dict.fromkeys(mm.RANK_K_PATHS, 0)
+    outs = []
+    for label, dtype, path, _, lower, c, a, b in cases:
+        before = dict(counter.launches_by_path)
+        outs.append(mm.masked_rank_k_update(c, a, b, alpha=-1.0, lower=lower))
+        check(counter.launches_by_path[path] - before[path] == 1
+              and counter.launches == len(outs),
+              f"K5 {label} {dtype}: not one launch of the {path} path "
+              f"({before} -> {counter.launches_by_path})")
+    torch.cuda.synchronize()
+    launches = dict(counter.launches_by_path)
+
+    out = {}
+    for (label, dtype, path, tol, lower, c, a, b), o in zip(cases, outs):
+        m, nn = c.shape
+        name = str(dtype)[6:]
+        tag = f"{label} {name} {'lower' if lower else 'upper'} {path}"
+        rows = torch.arange(m, device="cuda")[:, None]
+        cols = torch.arange(nn, device="cuda")[None, :]
+        mask = rows >= cols if lower else rows <= cols
+        ref = mm.masked_rank_k_update_plain(c, a, b, -1.0, lower)
+        scale = float(ref.abs().max())
+
+        def held(got, what):
+            err = float((got - ref).abs().max())
+            check(err <= tol * scale, f"K5 {tag}{what}: max|err| {err:.3e} "
+                  f"> {tol:g}·max|C| ({scale:.3e})")
+            check(torch.equal(bits(got)[~mask], bits(c)[~mask]),
+                  f"K5 {tag}{what}: the other triangle is not c")
+            return err
+
+        def kernel(p=path):
+            return mm._run_rank_k(c, a, b, -1.0, lower, p)
+
+        err = held(o, "")
+        check(torch.equal(bits(kernel()), bits(o)),
+              f"K5 {tag}: the bits changed on a second call")
+        ms, plain_ms = time_pair(
+            kernel, lambda: mm.masked_rank_k_update_plain(c, a, b, -1.0,
+                                                          lower), reps=20)
+        # c read and out written whole, a and b read once; the triangle's
+        # product is 2k FLOPs an entry
+        b_ms, b_by = bound((2 * m * nn + (m + nn) * a.shape[1])
+                           * c.element_size(),
+                           2.0 * a.shape[1] * int(mask.sum()), name)
+        line = (f"[12 K5] {tag}: max|err| vs plain {err:.3e} (max|C| "
+                f"{scale:.3e}), other triangle bit-equal to c, the same bits "
+                f"on a second call; kernel {ms:.4f} ms ({b_ms / ms:.3f} of "
+                f"the {b_ms:.4f} ms bound, by {b_by}), plain "
+                f"{plain_ms:.4f} ms over 20 launches")
+        if path != "simt":
+            def addmm():
+                return torch.addmm(c, a, b, alpha=-1.0)
+
+            simt_err = held(kernel("simt"), " simt")
+            simt_ms = cuda_ms(lambda: kernel("simt"), 20)
+            addmm_ms = cuda_ms(addmm, 20)
+            line += (f"; the SIMT kernel: max|err| vs plain {simt_err:.3e}, "
+                     f"{simt_ms:.4f} ms ({simt_ms / ms:.2f}x the {path} "
+                     f"path's time); torch.addmm over the whole square (same "
+                     f"bytes, twice the FLOPs, not the same function) "
+                     f"{addmm_ms:.4f} ms; device time (us a call): "
+                     f"{fmt_us(device_us(kernel))}; SIMT "
+                     f"{fmt_us(device_us(lambda: kernel('simt')))}; addmm "
+                     f"{fmt_us(device_us(addmm))}")
+        print(line)
+        if path not in out:
+            out[path] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             bound=(b_ms, b_by))
+        del ref, mask
+    del cases, outs
     return launches, out
 
 
@@ -1188,8 +1250,11 @@ def main() -> int:
                             ("dmma", "matmul_sm90.cu"),
                             ("ffma", "matmul_sm90.cu"),
                             ("simt", "matmul.cu"))),
-        entry("masked_rank_k_update", "matmul.cu", "matmul.py:68",
-              k5_launches, k5),
+        *(entry(name, src, "matmul.py:68", k5_launches[path], k5[path])
+          for name, path, src in (
+              ("masked_rank_k_update", "ffma", "matmul_sm90.cu"),
+              ("masked_rank_k_update_dmma", "dmma", "matmul_sm90.cu"),
+              ("masked_rank_k_update_simt", "simt", "matmul.cu"))),
         *(entry(op, "elementwise.cu", f"elementwise.py:{line}",
                 k6_launches[op], k6[op], library_ms=k6[op]["plain_ms"])
           for op, line in ew_lines.items())]}))

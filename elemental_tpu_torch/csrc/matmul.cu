@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernels elemental_tpu/kernels/matmul.py:matmul
 // (_matmul_kernel, K4) and masked_rank_k_update (its inner kernel, K5).
-// K4 runs here only for the shapes that the Hopper kernels of
-// matmul_sm90.cu cannot take (k or n off a 16-byte vector, data off 16-byte
-// alignment: elemental_tpu_torch/kernels/matmul.py, _matmul_path); K5
-// always runs here.
+// Both run here only for the shapes that the Hopper kernels of
+// matmul_sm90.cu cannot take (k = 0, k or n off a 16-byte vector, data off
+// 16-byte alignment: elemental_tpu_torch/kernels/matmul.py, _matmul_path
+// and _rank_k_path).
 //
 // What they compute, for a (m, k), b (k, n), c and out (m, n), all
 // row-major and contiguous:

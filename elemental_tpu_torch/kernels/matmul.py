@@ -24,7 +24,13 @@ dtype, shape and alignment (never on a failure: a refused launch raises):
 The first three load 16-byte vectors of rows (TMA boxes or cp.async), so
 they need k > 0, k and n multiples of one 16-byte vector (8 bfloat16, 4
 float32, 2 float64) and 16-byte aligned data; every other shape takes
-``"simt"``.  K5 stays on the SIMT template of ``csrc/matmul.cu``.
+``"simt"``.
+
+K5 has three, and :func:`_rank_k_path` picks one by the same rule, with c
+aligned too: ``"ffma"`` (float32) and ``"dmma"`` (float64) run K4's main
+loops under a masked epilogue in ``csrc/matmul_sm90.cu``, with c's stream
+overlapped with the product; ``"simt"`` is the first port's kernel in
+``csrc/matmul.cu``.
 
 The kernels are built with ``nvcc`` for sm_90a at first use
 (``_build.py``) and loaded with ctypes; they launch on the current CUDA
@@ -60,6 +66,20 @@ _SM90_PATHS = {torch.bfloat16: ("wgmma", "el_matmul_wgmma_bf16", 8),
                torch.float32: ("ffma", "el_matmul_ffma_f32", 4),
                torch.float64: ("dmma", "el_matmul_dmma_f64", 2)}
 PATHS = ("wgmma", "dmma", "ffma", "simt")
+# K5's Hopper kernels in csrc/matmul_sm90.cu, by dtype and triangle; their
+# paths are K4's for the dtype
+_RANK_K_SM90_FNS = {
+    (torch.float32, True): "el_rank_k_ffma_lower_f32",
+    (torch.float32, False): "el_rank_k_ffma_upper_f32",
+    (torch.float64, True): "el_rank_k_dmma_lower_f64",
+    (torch.float64, False): "el_rank_k_dmma_upper_f64",
+}
+RANK_K_PATHS = ("dmma", "ffma", "simt")
+_RANK_K_TYPES = (torch.float32, torch.float64)
+# (a, b, c, out, m, n, k, alpha, stream): the C signature of the SIMT
+# kernels and of K5's
+_ABC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+    ctypes.c_double, ctypes.c_void_p]
 # every kernel's output tile is 128 rows high and its grid holds at most
 # 65535 row tiles
 TILE = 128
@@ -73,8 +93,9 @@ def build() -> str:
 
 
 def build_sm90() -> str:
-    """Compile K4's wgmma, dmma and ffma kernels (if their library is not
-    built yet); returns the library's path."""
+    """Compile K4's wgmma, dmma and ffma kernels and K5's ffma and dmma
+    kernels (if their library is not built yet); returns the library's
+    path."""
     return build_cuda_library("matmul_sm90", [SOURCE_SM90])
 
 
@@ -83,8 +104,7 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     for name in (*_MATMUL_FNS.values(), *_RANK_K_FNS.values()):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
-            ctypes.c_double, ctypes.c_void_p]
+        fn.argtypes = _ABC_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -96,6 +116,10 @@ def _lib_sm90() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
             ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _RANK_K_SM90_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = _ABC_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -211,6 +235,44 @@ def masked_rank_k_update_plain(c: torch.Tensor, a: torch.Tensor,
                        c + alpha * torch.matmul(a, b).to(c.dtype), c)
 
 
+def _rank_k_path(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> str:
+    """The K5 kernel for c (m, n) and a (m, k)·b (k, n): ``"ffma"``
+    (float32) or ``"dmma"`` (float64) when k > 0, k and n are multiples of
+    the dtype's 16-byte vector (4, 2 elements) and the three data pointers
+    are 16-byte aligned; ``"simt"`` otherwise.  A pure function of dtype,
+    shape and alignment; any other dtype, or mixed dtypes, raise
+    ``TypeError``."""
+    if c.dtype not in _RANK_K_TYPES or a.dtype != c.dtype \
+            or b.dtype != c.dtype:
+        raise TypeError(f"masked_rank_k_update: unsupported types "
+                        f"{[t.dtype for t in (c, a, b)]}")
+    path, _, vec = _SM90_PATHS[c.dtype]
+    k, n = a.shape[1], b.shape[1]
+    if k == 0 or k % vec or n % vec or any(t.data_ptr() % 16
+                                           for t in (c, a, b)):
+        return "simt"
+    return path
+
+
+def _run_rank_k(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, alpha,
+                lower: bool, path: str) -> torch.Tensor:
+    """Launch K5's ``path`` kernel on contiguous CUDA c, a, b; no counting.
+    Raises if ``path`` cannot take these operands."""
+    if path not in ("simt", _rank_k_path(c, a, b)):
+        raise ValueError(f"masked_rank_k_update: path {path!r} cannot take "
+                         f"{c.dtype} c {tuple(c.shape)} with k = "
+                         f"{a.shape[1]} (the rule gives "
+                         f"{_rank_k_path(c, a, b)!r})")
+    m, k = a.shape
+    out = torch.empty_like(c)
+    lib, fns = ((_lib(), _RANK_K_FNS) if path == "simt"
+                else (_lib_sm90(), _RANK_K_SM90_FNS))
+    _launch("masked_rank_k_update", getattr(lib, fns[(c.dtype, bool(lower))]),
+            a, b, c.data_ptr(), out.data_ptr(), m, b.shape[1], k,
+            float(alpha))
+    return out
+
+
 def masked_rank_k_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          alpha=1.0, lower: bool = True) -> torch.Tensor:
     """K5: a new tensor holding one triangle of C + α·A·B (rows ≥ columns
@@ -219,25 +281,26 @@ def masked_rank_k_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     rounded as the plain version rounds it: the product, then α times it,
     then the sum, each once.
 
-    CPU tensors: the plain version.  CUDA tensors: the K5 kernel, or an
-    exception.  ``masked_rank_k_update.launches`` counts kernel launches."""
+    CPU tensors: the plain version.  CUDA tensors: the K5 kernel that
+    :func:`_rank_k_path` names, or an exception.
+    ``masked_rank_k_update.launches`` counts kernel launches,
+    ``masked_rank_k_update.launches_by_path`` them by path."""
     _check_shapes("masked_rank_k_update", a, b)
     if c.dim() != 2 or tuple(c.shape) != (a.shape[0], b.shape[1]):
         raise ValueError(f"masked_rank_k_update: c {tuple(c.shape)} is not "
                          f"({a.shape[0]}, {b.shape[1]})")
     if all(t.device.type == "cpu" for t in (c, a, b)):
         return masked_rank_k_update_plain(c, a, b, alpha, lower)
-    _check("masked_rank_k_update", (torch.float32, torch.float64), c, a, b)
+    _check("masked_rank_k_update", _RANK_K_TYPES, c, a, b)
     if c.device.type != "cuda":
         raise ValueError(f"masked_rank_k_update: no kernel for device "
                          f"{c.device}")
-    out = torch.empty_like(c)
-    m, k = a.shape
-    _launch("masked_rank_k_update",
-            getattr(_lib(), _RANK_K_FNS[(c.dtype, bool(lower))]), a, b,
-            c.data_ptr(), out.data_ptr(), m, b.shape[1], k, float(alpha))
+    path = _rank_k_path(c, a, b)
+    out = _run_rank_k(c, a, b, alpha, lower, path)
     masked_rank_k_update.launches += 1
+    masked_rank_k_update.launches_by_path[path] += 1
     return out
 
 
 masked_rank_k_update.launches = 0
+masked_rank_k_update.launches_by_path = dict.fromkeys(RANK_K_PATHS, 0)

@@ -18,7 +18,8 @@ import torch
 from elemental_tpu_torch.kernels import elementwise as ew
 from elemental_tpu_torch.kernels.extend_add import (RUN_BLOCK, extend_add,
                                                     extend_add_plain)
-from elemental_tpu_torch.kernels.matmul import (_matmul_path, _run_matmul,
+from elemental_tpu_torch.kernels.matmul import (_matmul_path, _rank_k_path,
+                                                _run_matmul, _run_rank_k,
                                                 masked_rank_k_update,
                                                 masked_rank_k_update_plain,
                                                 matmul, matmul_plain)
@@ -791,6 +792,123 @@ def test_masked_rank_k_update_kernel_matches_plain(cuda, no_tf32, dtype,
     assert torch.equal(_bits(out)[~mask], _bits(c)[~mask])
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# K5's Hopper paths.  Shapes (m, k, n), each on its dtype's path in both
+# dtypes: the 4096² trailing update at rank 128; m != n both ways; k one
+# float32 vector and k off the DMMA ring's 16; n a multiple of both vectors
+# but not of 128.
+RK_SHAPES = [(4096, 128, 4096), (520, 128, 300), (300, 64, 1028),
+             (260, 4, 260), (260, 132, 260), (384, 64, 388)]
+RK_PATHS = {torch.float32: "ffma", torch.float64: "dmma"}
+
+
+def _plant(c, mask):
+    """c with a NaN (a payload of its own) in every 7th entry outside the
+    mask and −0 in every 11th."""
+    c = c.clone()
+    bits = _bits(c).view(-1)
+    idx = (~mask).flatten().nonzero().flatten()
+    one = 1 << (8 * c.element_size() - 1)
+    bits[idx[::7]] = (0x7FC01234 if c.dtype == torch.float32
+                      else 0x7FF8000000001234)
+    bits[idx[3::11]] = -one                                   # −0
+    return c
+
+
+def _rank_k_operands(cuda, dtype, lower, m, k, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = torch.arange(m, device=cuda)[:, None]
+    cols = torch.arange(n, device=cuda)[None, :]
+    mask = rows >= cols if lower else rows <= cols
+    c = _plant(torch.randn(m, n, generator=g, device=cuda, dtype=dtype), mask)
+    a = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    b = torch.randn(k, n, generator=g, device=cuda, dtype=dtype)
+    return mask, c, a, b
+
+
+def _check_rank_k(out, ref, c, mask):
+    """The other triangle bit-equal to c; the triangle within 1e-5 (float32,
+    which TF32's ~1e-3 would miss) or 1e-12 (float64) of max|out| against
+    the plain version."""
+    assert out.dtype == c.dtype and out.shape == c.shape
+    assert torch.equal(_bits(out)[~mask], _bits(c)[~mask])
+    tol = 1e-5 if c.dtype == torch.float32 else 1e-12
+    assert float((out - ref)[mask].abs().max()) <= \
+        tol * float(ref[mask].abs().max())
+
+
+@pytest.mark.parametrize("shape", RK_SHAPES)
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rank_k_paths_match_plain(cuda, no_tf32, dtype, lower, shape):
+    """Each shape on its dtype's Hopper path, by the rule and its counter,
+    for α = −1, 0.5 and 0, with NaN and −0 planted in the other triangle;
+    the same bits over 3 more calls."""
+    path = RK_PATHS[dtype]
+    mask, c, a, b = _rank_k_operands(cuda, dtype, lower, *shape, seed=8)
+    assert _rank_k_path(c, a, b) == path
+    for alpha in (-1.0, 0.5, 0.0):
+        before = dict(masked_rank_k_update.launches_by_path)
+        out = masked_rank_k_update(c, a, b, alpha=alpha, lower=lower)
+        ref = masked_rank_k_update_plain(c, a, b, alpha=alpha, lower=lower)
+        torch.cuda.synchronize()
+        after = masked_rank_k_update.launches_by_path
+        assert after[path] - before[path] == 1
+        assert sum(after.values()) - sum(before.values()) == 1
+        _check_rank_k(out, ref, c, mask)
+    for _ in range(3):
+        again = masked_rank_k_update(c, a, b, alpha=0.0, lower=lower)
+        assert torch.equal(_bits(again), _bits(out))
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rank_k_simt_route_by_rule(cuda, no_tf32, dtype, lower):
+    """k or n off the 16-byte vectors, k = 0, and c, a or b off 16-byte
+    alignment take the SIMT kernel, by the rule and its counter, and pass
+    the same checks."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cases = [(300, 17, 200), (130, 64, 67), (64, 0, 64)]
+    for m, k, n in cases:
+        mask, c, a, b = _rank_k_operands(cuda, dtype, lower, m, k, n, seed=9)
+        cases_ops = [(c, a, b)]
+        if k:
+            # each operand in turn off 16 bytes, the others aligned
+            for i, t in enumerate((c, a, b)):
+                flat = torch.randn(t.numel() + 1, generator=g, device=cuda,
+                                   dtype=dtype)
+                flat[1:] = t.flatten()
+                ops = [c, a, b]
+                ops[i] = flat[1:].view(t.shape)
+                cases_ops.append(tuple(ops))
+        for cc, aa, bb in cases_ops:
+            assert _rank_k_path(cc, aa, bb) == "simt"
+            before = masked_rank_k_update.launches_by_path["simt"]
+            out = masked_rank_k_update(cc, aa, bb, alpha=-0.75, lower=lower)
+            ref = masked_rank_k_update_plain(cc, aa, bb, alpha=-0.75,
+                                             lower=lower)
+            torch.cuda.synchronize()
+            assert masked_rank_k_update.launches_by_path["simt"] - before \
+                == 1
+            _check_rank_k(out, ref, cc, mask)
+
+
+def test_rank_k_paths_refuse_what_they_cannot_take(cuda):
+    for dtype, path in RK_PATHS.items():
+        c = torch.zeros(64, 64, device=cuda, dtype=dtype)
+        a = torch.zeros(64, 8, device=cuda, dtype=dtype)
+        b = torch.zeros(8, 64, device=cuda, dtype=dtype)
+        other = "dmma" if path == "ffma" else "ffma"
+        with pytest.raises(ValueError, match="cannot take"):
+            _run_rank_k(c, a, b, 1.0, True, other)
+        mis = torch.zeros(64 * 64 + 1, device=cuda, dtype=dtype)[1:]
+        with pytest.raises(ValueError, match="cannot take"):
+            _run_rank_k(mis.view(64, 64), a, b, 1.0, True, path)
+        with pytest.raises(ValueError, match="cannot take"):
+            _run_rank_k(c, torch.zeros(64, 5, device=cuda, dtype=dtype),
+                        torch.zeros(5, 64, device=cuda, dtype=dtype), 1.0,
+                        False, path)
 
 
 def test_dense_wrappers_refuse_bad_inputs(cuda):

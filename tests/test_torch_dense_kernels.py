@@ -19,7 +19,7 @@ from elemental_tpu.kernels import elementwise as jax_ew
 from elemental_tpu.kernels import matmul as jax_mm
 
 from elemental_tpu_torch.kernels import elementwise as ew
-from elemental_tpu_torch.kernels.matmul import (_matmul_path,
+from elemental_tpu_torch.kernels.matmul import (_matmul_path, _rank_k_path,
                                                 masked_rank_k_update, matmul,
                                                 matmul_plain)
 
@@ -125,14 +125,8 @@ def test_matmul_on_the_cpu_is_the_plain_version(dtype):
 
 # K5 ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("lower", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_masked_rank_k_update_matches_pallas(dtype, lower):
-    """The updated triangle within 1e-5·max|out| of the reference (its
-    product sums in float32 for either dtype) and of float64 NumPy (1e-12
-    in float64); the other triangle equal to c bit for bit in both."""
-    (cj, ct), (aj, at), (bj, bt) = _inputs(dtype, (96, 72), (96, 40),
-                                           (40, 72))
+def _rank_k_against_pallas(dtype, lower, m, k, n):
+    (cj, ct), (aj, at), (bj, bt) = _inputs(dtype, (m, n), (m, k), (k, n))
     with pltpu.force_tpu_interpret_mode():
         oj = jax_mm.masked_rank_k_update(cj, aj, bj, alpha=0.5, lower=lower)
     out = masked_rank_k_update(ct, at, bt, alpha=0.5, lower=lower)
@@ -147,6 +141,60 @@ def test_masked_rank_k_update_matches_pallas(dtype, lower):
     assert np.abs(_f64(out) - expect).max() <= tol * scale
     for o in (out.numpy(), np.asarray(oj)):
         np.testing.assert_array_equal(o[~mask], ct.numpy()[~mask])
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_masked_rank_k_update_matches_pallas(dtype, lower):
+    """The updated triangle within 1e-5·max|out| of the reference (its
+    product sums in float32 for either dtype) and of float64 NumPy (1e-12
+    in float64); the other triangle equal to c bit for bit in both."""
+    _rank_k_against_pallas(dtype, lower, 96, 40, 72)
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_masked_rank_k_update_matches_pallas_across_tiles(dtype, lower):
+    """c (256, 384), k = 32, with the gates above: m != n, and on the
+    card's 128 x 128 tiles copy tiles, tiles wholly inside the triangle and
+    two that its diagonal crosses."""
+    _rank_k_against_pallas(dtype, lower, 256, 32, 384)
+
+
+# K5's route on the card: K4's rule over k and n, with all three of c, a
+# and b 16-byte aligned; float32 and float64 only.
+RANK_K_PATH_OF = {"float32": ("ffma", 4), "float64": ("dmma", 2)}
+
+
+@pytest.mark.parametrize("shape", RULE_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rank_k_path_rule(dtype, aligned, shape):
+    m, k, n = shape
+    tdt = DTYPES[dtype][1]
+
+    def operand(rows, cols, off=0):
+        return torch.zeros(rows * cols + off, dtype=tdt)[off:].view(rows,
+                                                                    cols)
+
+    ops = [operand(m, n), operand(m, k), operand(k, n)]       # c, a, b
+    if dtype not in RANK_K_PATH_OF:
+        with pytest.raises(TypeError):
+            _rank_k_path(*ops)
+        return
+    path, vec = RANK_K_PATH_OF[dtype]
+    fits = k > 0 and k % vec == 0 and n % vec == 0
+    assert _rank_k_path(*ops) == (path if fits else "simt")
+    if not aligned:
+        # each of c, a and b off 16 bytes in turn
+        for i, (rows, cols) in enumerate(((m, n), (m, k), (k, n))):
+            if rows * cols:
+                mis = list(ops)
+                mis[i] = operand(rows, cols, off=1)
+                assert _rank_k_path(*mis) == "simt"
+    other = torch.float64 if tdt == torch.float32 else torch.float32
+    with pytest.raises(TypeError):
+        _rank_k_path(ops[0], ops[1].to(other), ops[2])
 
 
 # K6 ------------------------------------------------------------------------

@@ -13,9 +13,13 @@
   the gather, the gather over the same bytes with x read in slot order,
   and the gather and K7 with each bucket's slots sorted by column; then
   the gather, K7, the matvec and K2 on phase 8's skewed zipf matrix and
-  on the uniform matrix with its slots shuffled within each bucket.
+  on the uniform matrix with its slots shuffled within each bucket;
+- ``k5``: K5 (``masked_rank_k_update``) at phase 12's 4096², rank 128,
+  lower and upper, beside ``torch.addmm`` over the whole square (same
+  bytes, twice the FLOPs); and K4 (``matmul``) at 4096³, whose float32 and
+  float64 main loops K5 shares; in float32 and float64.
 
-    python3 tools/k2_profile.py [--repo DIR] [--cases k2,k3,bridged]
+    python3 tools/k2_profile.py [--repo DIR] [--cases k2,k3,bridged,k5]
                                 [--reps 50] [--seed 0]
 
 ``--repo`` names the checkout whose ``elemental_tpu_torch`` is profiled (by
@@ -59,12 +63,12 @@ def main() -> int:
     ap.add_argument("--repo", default=HERE,
                     help="checkout whose elemental_tpu_torch is profiled")
     ap.add_argument("--cases", default="k2",
-                    help="comma-separated: k2, k3, bridged")
+                    help="comma-separated: k2, k3, bridged, k5")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     cases = args.cases.split(",")
-    if not set(cases) <= {"k2", "k3", "bridged"}:
+    if not set(cases) <= {"k2", "k3", "bridged", "k5"}:
         ap.error(f"unknown cases {args.cases!r}")
     sys.path.insert(0, HERE)
     import chip_smoke as cs
@@ -180,6 +184,30 @@ def main() -> int:
                      ("matvec", lambda: bp.matvec(x)),
                      ("K2", lambda: gather_spmv(k2, x))), args.reps)
                 del bp, k2, x, P
+    if "k5" in cases:
+        from elemental_tpu_torch.kernels.matmul import (masked_rank_k_update,
+                                                        matmul)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n, k = 4096, 128
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        for dtype in dtypes:
+            name = str(dtype)[6:]
+            c, a, b = (torch.randn(*shape, generator=gen, device="cuda",
+                                   dtype=dtype)
+                       for shape in ((n, n), (n, k), (k, n)))
+            for lower in (True, False):
+                profile_products(
+                    f"K5 {n}x{n} rank {k} {name} "
+                    f"{'lower' if lower else 'upper'}",
+                    (("K5", lambda: masked_rank_k_update(c, a, b, -1.0,
+                                                         lower)),
+                     ("addmm, whole square",
+                      lambda: torch.addmm(c, a, b, alpha=-1.0))), args.reps)
+            a4, b4 = (torch.randn(n, n, generator=gen, device="cuda",
+                                  dtype=dtype) for _ in range(2))
+            profile_products(f"K4 {n}^3 {name}",
+                             (("K4", lambda: matmul(a4, b4)),), args.reps)
+            del c, a, b, a4, b4
     return 0
 
 
