@@ -21,7 +21,8 @@ Phases, each printing at least one line and each fatal when it fails:
    residual under the dtype's bound, K1 launched;
 5. the LP at full size: ``lp_direct`` for ``--max-iters`` iterations in
    float32 (the ordering of phase 3 reused), after the first KKT factor is
-   checked against one made with the plain extend-add; its seconds per
+   checked against one made with the plain extend-add and timed with and
+   without ``KKTSystem.prepare``'s zero-pivot check; its seconds per
    iteration are the run's time less that of a ``max_iters=0`` run, which
    returns the starting point;
 6. K3: ``plan_spmv`` of the 1024² 2-D Laplacian/8 and the 128³ 3-D
@@ -64,7 +65,34 @@ Phases, each printing at least one line and each fatal when it fails:
 13. K6 ``axpy``, ``scale``, ``hadamard``, ``copy``, ``fill`` and
     ``transpose`` on 8192² float32 (``transpose`` also on 8192×4096)
     against their plain versions (torch's own kernels), with GB/s and
-    kernel/torch, the latter also with the window opened on an idle card.
+    kernel/torch, the latter also with the window opened on an idle card;
+
+14-17. the rest of the IPM tier, each at the LP's KKT size (N ≈ 3·n1²),
+    its host analysis (ordering, symbolic analysis, extend-add plan) run
+    for all six patterns at once, one spawned process each, beside phase
+    3's analysis of the LP.  Each at-scale run is float32 with the
+    ordering given: a ``max_iters=0`` run and a ``--max-iters`` run, whose
+    difference over the iterations is the s/iteration; the iterates
+    finite, the host-f64 primal and dual residuals below the start's, K1
+    launched at least levels × factors times, and the run's first factor
+    taken again with K1 held against the plain extend-add on the same pool
+    at every level, within 1e-5 of max|pool| (1e-12 in float64; phase 17's
+    runs too).  14: ``qp_direct`` (Q = blockdiag(L, L) of the grid Laplacian, A =
+    concat_fd_2d) and one iteration under ``torch.profiler`` (the factor's
+    share of it); converged in float64 at n1 = 32 to test_ipm.py's KKT
+    gate, and ``portfolio`` and ``nnls`` at their test sizes.  15:
+    ``lp_affine`` (the orthant) and ``socp_affine`` (cones of order 4) on A
+    = concat_fd_2d, G = −I, each on its own ordering (the SOCP's, whose
+    pattern holds the LP's, gave the LP 177 levels and a 26-43 s symbolic
+    analysis, PERF.md §6); converged in float64:
+    ``lp_affine`` against HiGHS, ``socp_affine`` against lstsq,
+    ``robust_least_squares`` and ``basis_pursuit_complex``.  16: a
+    general-form MPS file (E, L, G rows, RANGES, UP/LO/FX/FR/MI bounds, an
+    objective constant) written and read back exactly, then ``solve_mps``;
+    the same generator at n1 = 16 converged in float64 to HiGHS.  17:
+    ``sparse_least_squares`` (examples/sequential_least_squares.py's
+    extended Laplacian) and ``sparse_lse`` (examples/sequential_lse.py's
+    problem) in float64 and float32, held to the drivers' gates.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -80,6 +108,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.modules["jax"] = None       # the port must run with no JAX at all
@@ -347,6 +376,19 @@ def phase_lp(A, b, c, kkt, max_iters: int):
           f"first KKT factor: K1 vs plain max|err| {err:.3e} > "
           f"1e-5·max|pool| ({scale:.3e})")
     del fp
+    # what prepare's zero-pivot check costs: prepare against its own steps
+    # without the check (order: without, with, with, without), and the
+    # check alone, reading a finished factor
+
+    def unchecked():
+        v, _ = kkt.equilibrate(vals)
+        return numeric.factor(kkt.symb, v, ea_plan=kkt.ea_plan, dtype=f32)
+
+    runs = {"with": lambda: kkt.prepare(vals), "without": unchecked}
+    t_pair = dict.fromkeys(runs, 0.0)
+    for label in ("without", "with", "with", "without"):
+        t_pair[label] += wall(runs[label])[1] / 2
+    _, t_check = wall(lambda: [bool((fk.d == 0).any()) for _ in range(10)])
     ctx, t_ctx = wall(fk.solve_context)
     reg_diag = torch.cat([torch.full((n,), gamma), torch.full((m,), -gamma)]
                          ).to("cuda", f32)
@@ -356,8 +398,11 @@ def phase_lp(A, b, c, kkt, max_iters: int):
                                                ctx=ctx))
     print(f"[5 LP] first KKT factor: K1 {t_factor:.3f} s, plain extend-add "
           f"{t_plain:.3f} s, pools agree to {err:.3e} (max|pool| "
-          f"{scale:.3e}); panel inverses {t_ctx:.3f} s; FGMRES-{nref} sweep "
-          f"{t_sweep:.3f} s")
+          f"{scale:.3e}); prepare with its zero-pivot check "
+          f"{t_pair['with']:.3f} s, without it {t_pair['without']:.3f} s "
+          f"(mean of two each), the check alone "
+          f"{t_check / 10 * 1e3:.3f} ms; panel inverses {t_ctx:.3f} s; "
+          f"FGMRES-{nref} sweep {t_sweep:.3f} s")
     del fk, ctx
 
     levels_with_children = len(kkt.ea_plan.levels)
@@ -1148,30 +1193,835 @@ def phase_k6(seed: int):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-17: the rest of the IPM tier, each at the LP's KKT size
+# ---------------------------------------------------------------------------
+
+def grids(n1: int) -> dict:
+    """The grid side of each at-scale instance, chosen so that its KKT (or
+    augmented system) has the LP's N = 3·n1²: the affine LP and SOCP have
+    N = 5·g², the standardized MPS LP about 4.2·g², least squares 3·g² and
+    the LSE about 2·g² (the affine side even, so that 2·g² variables fill
+    cones of order 4)."""
+    return {"qp": n1, "affine": 2 * round(n1 * (3 / 5) ** 0.5 / 2),
+            "mps": round(n1 * (3 / 4.2) ** 0.5), "ls": n1,
+            "lse": round(n1 * 1.5 ** 0.5)}
+
+
+def qp_instance(n1: int, seed: int):
+    """min ½xᵀQx + cᵀx, Ax = b, x ≥ 0 with Q = blockdiag(L, L), L the
+    unscaled 5-point Laplacian on the n1×n1 grid, A = concat_fd_2d(n1, n1)
+    and b = A·x0 for an x0 > 0."""
+    import numpy as np
+    from elemental_tpu_torch.matrices import concat_fd_2d, sparse_laplacian_2d
+    from elemental_tpu_torch.sparse import SparseMatrix
+    A = concat_fd_2d(n1, n1)
+    L = sparse_laplacian_2d(n1, n1, scaled=False)
+    h = L.height
+    Q = SparseMatrix.from_coo(2 * h, 2 * h,
+                              np.concatenate([L.row_ids(), L.row_ids() + h]),
+                              np.concatenate([L.colind, L.colind + h]),
+                              np.concatenate([L.vals, L.vals]))
+    rng = np.random.default_rng(seed)
+    x0 = np.abs(rng.standard_normal(A.width)) + 0.1
+    return Q, A, A.to_scipy() @ x0, rng.standard_normal(A.width)
+
+
+def affine_instance(n1: int, seed: int, order: int):
+    """min cᵀx, Ax = b, Gx + s = h, s ∈ K with A = concat_fd_2d(n1, n1),
+    G = −I, h = 0 (so s = x) and K the orthant (order 1) or cones of order
+    4; b = A·x0 and c = z0 − Aᵀy0 with x0 and z0 in K's interior, so primal
+    and dual are strictly feasible."""
+    import numpy as np
+    from elemental_tpu_torch.matrices import concat_fd_2d
+    from elemental_tpu_torch.sparse import SparseMatrix
+    A = concat_fd_2d(n1, n1)
+    m, n = A.shape
+    rng = np.random.default_rng(seed)
+
+    def interior():
+        v = rng.standard_normal((n // order, order)) * 0.3
+        v[:, 0] = np.linalg.norm(v[:, 1:], axis=1) + rng.uniform(
+            0.5, 1.5, n // order)
+        return v.reshape(-1)
+
+    x0, z0 = interior(), interior()
+    G = SparseMatrix.from_coo(n, n, np.arange(n), np.arange(n), -np.ones(n))
+    c = z0 - A.to_scipy().T @ rng.standard_normal(m)
+    return A, A.to_scipy() @ x0, G, np.zeros(n), c, [order] * (n // order)
+
+
+def general_form_lp(n1: int, seed: int):
+    """(MPS text, what read_mps must give back) of a feasible, bounded
+    general-form LP on concat_fd_2d(n1, n1): E rows, every 10th row from the
+    4th L and from the 8th G, RANGES of 3 on half of those, and UP, LO, FX,
+    FR, MI and a negative UP bound on every 20th column from the 2nd to the
+    7th; an objective constant of 7.25.  An interior x0 meets every row and
+    bound, and c = A_Eᵀy0 + d with d ≥ 0 on lower-bounded columns, ≤ 0 on
+    upper-bounded ones and 0 on free ones, so the dual is feasible too."""
+    import numpy as np
+    import scipy.sparse as sp
+    from elemental_tpu_torch.matrices import concat_fd_2d
+    A = concat_fd_2d(n1, n1).to_scipy()
+    m, n = A.shape
+    rng = np.random.default_rng(seed)
+    kind = np.full(m, "E")
+    kind[3::10], kind[7::10] = "L", "G"
+    ranged = (kind != "E") & (np.arange(m) % 20 >= 10)
+    x0 = rng.uniform(0.5, 1.5, n)
+    bound = np.full(n, "", dtype="<U3")
+    for off, bk in enumerate(("UP", "LO", "FX", "FR", "MI", "UPN"), 1):
+        bound[off::20] = bk
+    x0[bound == "UPN"] = -rng.uniform(2.0, 3.0, int((bound == "UPN").sum()))
+    lower, upper = np.zeros(n), np.full(n, np.inf)
+    upper[bound == "UP"] = x0[bound == "UP"] + 1.0
+    lower[bound == "LO"] = x0[bound == "LO"] - 1.0
+    lower[bound == "FX"] = upper[bound == "FX"] = x0[bound == "FX"]
+    lower[np.isin(bound, ["FR", "MI", "UPN"])] = -np.inf
+    upper[bound == "UPN"] = x0[bound == "UPN"] + 1.0
+    rhs = A @ x0 + np.where(kind == "L", 1.0,
+                            np.where(kind == "G", -1.0, 0.0))
+    eq, ineq = np.nonzero(kind == "E")[0], np.nonzero(kind != "E")[0]
+    d = rng.uniform(0.1, 1.0, n)
+    d[bound == "UPN"] *= -1.0
+    d[np.isin(bound, ["FR", "MI"])] = 0.0
+    d[np.isin(bound, ["UP", "FX"])] -= 0.55
+    c = A[eq].T @ rng.standard_normal(eq.size) + d
+    csc = A.tocsc()
+    out = [f"NAME          GEN{n1}", "ROWS", " N  OBJ"]
+    out += [f" {kind[i]}  R{i}" for i in range(m)]
+    out.append("COLUMNS")
+    for j in range(n):
+        out.append(f"    C{j}  OBJ  {float(c[j])!r}")
+        out += [f"    C{j}  R{csc.indices[p]}  {float(csc.data[p])!r}"
+                for p in range(csc.indptr[j], csc.indptr[j + 1])]
+    out += ["RHS", "    RHS  OBJ  -7.25"]
+    out += [f"    RHS  R{i}  {float(rhs[i])!r}" for i in range(m)]
+    out.append("RANGES")
+    out += [f"    RNG  R{i}  3.0" for i in np.nonzero(ranged)[0]]
+    out.append("BOUNDS")
+    for j in np.nonzero(bound != "")[0]:
+        bk = bound[j]
+        val = {"UP": upper, "UPN": upper, "LO": lower, "FX": lower}.get(bk)
+        v = "" if val is None else f"  {float(val[j])!r}"
+        out.append(f" {'UP' if bk == 'UPN' else bk} BND  C{j}{v}")
+    out.append("ENDATA")
+    # the reader's form: G rows negated into ≤, then a ≤ row of the
+    # opposite side for each ranged L/G row, in row order
+    sign = np.where(kind[ineq] == "G", -1.0, 1.0)
+    A_le = sp.diags(sign) @ A[ineq]
+    b_le = sign * rhs[ineq]
+    rr = np.nonzero(ranged[ineq])[0]
+    A_le = sp.vstack([A_le, -A_le[rr]]).tocsr()
+    A_le.sort_indices()
+    expect = dict(c=c, c0=7.25, A_eq=A[eq].tocsr(), b_eq=rhs[eq], A_le=A_le,
+                  b_le=np.concatenate([b_le, -(b_le[rr] - 3.0)]),
+                  lower=lower, upper=upper,
+                  col_names=[f"C{j}" for j in range(n)],
+                  row_names=[f"R{i}" for i in range(m)])
+    return "\n".join(out) + "\n", expect
+
+
+def extended_laplacian(n0: int, n1: int):
+    """examples/sequential_least_squares.py's matrix: the 5-point Laplacian
+    (scaled by the grid) stacked on 2(hx + hy)·I, 2n × n."""
+    import numpy as np
+    from elemental_tpu_torch.sparse import SparseMatrix
+    n = n0 * n1
+    s = np.arange(n)
+    x, y = s % n0, s // n0
+    hx, hy = float(n0 + 1) ** 2, float(n1 + 1) ** 2
+    rows, cols = [s, s + n], [s, s]
+    vals = [np.full(n, 2 * (hx + hy)), np.full(n, 2 * (hx + hy))]
+    for mask, col, v in [(x > 0, s - 1, -hx), (x < n0 - 1, s + 1, -hx),
+                         (y > 0, s - n0, -hy), (y < n1 - 1, s + n0, -hy)]:
+        rows.append(s[mask])
+        cols.append(col[mask])
+        vals.append(np.full(int(mask.sum()), v))
+    return SparseMatrix.from_coo(2 * n, n, np.concatenate(rows),
+                                 np.concatenate(cols), np.concatenate(vals))
+
+
+def fd2d_dense_column(n0: int, n1: int):
+    """examples/sequential_lse.py's A: the reference's FD2D stencil with its
+    dense last column, n × n."""
+    import numpy as np
+    from elemental_tpu_torch.sparse import SparseMatrix
+    n = n0 * n1
+    s = np.arange(n)
+    x, y = s % n0, s // n0
+    rows, cols, vals = [s], [s], [np.full(n, 11.0)]
+    for mask, col, v in [(x > 0, s - 1, -1.0), (x < n0 - 1, s + 1, 2.0),
+                         (y > 0, s - n0, -3.0), (y < n1 - 1, s + n0, 4.0)]:
+        rows.append(s[mask])
+        cols.append(col[mask])
+        vals.append(np.full(int(mask.sum()), v))
+    rows.append(s)
+    cols.append(np.full(n, n - 1))
+    vals.append(np.full(n, -10.0 / n))
+    return SparseMatrix.from_coo(n, n, np.concatenate(rows),
+                                 np.concatenate(cols), np.concatenate(vals))
+
+
+def lse_instance(g: int, seed: int, p: int = 5):
+    """examples/sequential_lse.py's problem on a g×g grid: B dense
+    uniform(0, 1) p×n, c and d normal."""
+    import numpy as np
+    from elemental_tpu_torch.sparse import SparseMatrix
+    A = fd2d_dense_column(g, g)
+    rng = np.random.default_rng(seed)
+    B = SparseMatrix.from_dense(rng.uniform(0, 1, (p, A.width)))
+    return A, B, rng.standard_normal(A.width), rng.standard_normal(p)
+
+
+def ordering_job(kind: str, arg, seed: int):
+    """Host analysis of one at-scale pattern, run in a worker process: the
+    fill ordering (nested dissection), the symbolic analysis and the
+    extend-add plan.  ``arg`` is --n1, or the MPS file's path for "mps".
+    Returns a dict: the ordering (``perm``), N, nnz, the levels with an
+    extend-add and the seconds taken."""
+    import torch
+    from elemental_tpu_torch.lapack.sparse_min import _ls_system, _lse_system
+    from elemental_tpu_torch.optimization.lp import (_build_affine_kkt,
+                                                     _build_lp_kkt,
+                                                     mps_to_standard,
+                                                     sparse_ruiz)
+    from elemental_tpu_torch.optimization.socp import Cones, _build_socp_kkt
+    from elemental_tpu_torch.sparse import read_mps
+    from elemental_tpu_torch.sparse_direct import (analyze, build_ea_plan,
+                                                   nested_dissection)
+    torch.set_num_threads(1)
+    cpu = dict(device="cpu", dtype=torch.float32)
+    t0 = time.perf_counter()
+    if kind == "mps":
+        A = mps_to_standard(read_mps(arg))[0]
+        kkt, _ = _build_lp_kkt(sparse_ruiz(A)[0], 1e-2, 1e-2, None, **cpu)
+    g = None if kind == "mps" else grids(arg)
+    if kind == "qp":
+        Q, A, _, _ = qp_instance(g["qp"], seed)
+        kkt, _ = _build_lp_kkt(A, 1e-2, 1e-2, None, Q=Q, **cpu)
+    elif kind == "lp_affine":
+        A, _, G, _, _, _ = affine_instance(g["affine"], seed, 1)
+        kkt = _build_affine_kkt(A, G, 1e-2, 1e-2, None, **cpu)
+    elif kind == "socp":
+        A, _, G, _, _, orders = affine_instance(g["affine"], seed, 4)
+        kkt, _ = _build_socp_kkt(A, G, Cones(orders), 1e-2, 1e-2, None,
+                                 **cpu)
+    if kind in ("qp", "lp_affine", "socp", "mps"):
+        return dict(perm=kkt.symb.perm.numpy(), N=kkt.N, nnz=kkt.nnz,
+                    levels=len(kkt.ea_plan.levels),
+                    seconds=time.perf_counter() - t0)
+    if kind == "ls":
+        K = _ls_system(extended_laplacian(g["ls"], g["ls"]), 1.0)
+        perm = nested_dissection(K, cutoff=64)
+    else:
+        A, B, _, _ = lse_instance(g["lse"], seed)
+        K = _lse_system(A, B, 1.0)
+        perm = dense_last_ordering(K)
+    levels = len(build_ea_plan(analyze(K, perm=perm)).levels)
+    return dict(perm=perm, N=K.height, nnz=K.nnz, levels=levels,
+                seconds=time.perf_counter() - t0)
+
+
+def dense_last_ordering(K):
+    """Nested dissection of K without its dense rows (degree above
+    10·√N, the rule of AMD), those rows last.  The LSE's B rows and its
+    dense column are such rows: the port's nested dissection, a Python BFS,
+    spends minutes on the whole graph at N = 150,157 (PERF.md §5)."""
+    import numpy as np
+    from elemental_tpu_torch.sparse import SparseMatrix
+    from elemental_tpu_torch.sparse_direct import nested_dissection
+    dense = np.diff(K.rowptr) > 10 * np.sqrt(K.height)
+    keep = np.nonzero(~dense)[0]
+    sub = SparseMatrix.from_scipy(K.to_scipy()[keep][:, keep])
+    return np.concatenate([keep[nested_dissection(sub, cutoff=64)],
+                           np.nonzero(dense)[0]])
+
+
+def start_ipm_analyses(n1: int, seed: int, tmp: str):
+    """Write phase 16's MPS file into ``tmp`` and start the host analysis
+    of the six at-scale patterns of phases 14-17 (``ordering_job``), one
+    spawned process each, so no CUDA state is shared, while the caller goes
+    on.  Returns (the MPS file's path, what read_mps must give back,
+    ``wait``); ``wait()`` returns the analyses by name once every process
+    has ended."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    g = grids(n1)
+    path = os.path.join(tmp, f"gen{g['mps']}.mps")
+    text, expect = general_form_lp(g["mps"], seed)
+    with open(path, "w") as f:
+        f.write(text)
+    jobs = [("qp", "qp", n1), ("lp_affine", "lp_affine", n1),
+            ("socp", "socp", n1), ("mps", "mps", path), ("ls", "ls", n1),
+            ("lse", "lse", n1)]
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(jobs), mp_context=multiprocessing
+                               .get_context("spawn"))
+    futs = {name: pool.submit(ordering_job, kind, arg, seed)
+            for name, kind, arg in jobs}
+
+    def wait():
+        t_wait = time.perf_counter()
+        try:
+            out = {name: f.result() for name, f in futs.items()}
+        finally:
+            pool.shutdown(cancel_futures=True)
+        t_end = time.perf_counter()
+        print(f"[14-17] host analysis of {len(jobs)} patterns, one process "
+              f"each, beside the LP's: {t_end - t0:.1f} s from their start, "
+              f"{t_end - t_wait:.1f} s of it waited for; " + "; ".join(
+                  f"{name} N={o['N']} nnz={o['nnz']}, {o['levels']} levels "
+                  f"with an extend-add, {o['seconds']:.1f} s"
+                  for name, o in out.items()))
+        return out
+
+    return path, expect, wait
+
+
+class FirstFactor:
+    """Keeps the arguments of the first numeric factor
+    (``numeric._factor_impl``) taken inside the ``with`` block."""
+
+    def __enter__(self):
+        from elemental_tpu_torch.sparse_direct import numeric
+        self.args, self._saved = None, numeric._factor_impl
+
+        def keep(*args):
+            if self.args is None:
+                self.args = args
+            return self._saved(*args)
+
+        numeric._factor_impl = keep
+        return self
+
+    def __exit__(self, *exc):
+        from elemental_tpu_torch.sparse_direct import numeric
+        numeric._factor_impl = self._saved
+
+
+def k1_against_plain(args) -> str:
+    """A path's first factor (``FirstFactor.args``) taken again on the card,
+    with K1 held against the plain extend-add on the same inputs at every
+    level: before each K1 launch the pool is copied and the plain version
+    applied to the copy.  Fails unless K1 launched on every level and each
+    level's pool agrees within 1e-5 (float32) or 1e-12 (float64) of its
+    max|pool|, as in phase 3; K1's counter is left as it was.  Returns the
+    line's text."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.extend_add import (extend_add,
+                                                        extend_add_plain)
+    from elemental_tpu_torch.sparse_direct import numeric
+    check(args is not None, "no factor was taken")
+    rtol = 1e-5 if args[3] == torch.float32 else 1e-12
+    counted = extend_add.launches
+    worst = dict(ratio=0.0, err=0.0, scale=0.0, levels=0)
+
+    def held(pool, level):
+        ref = pool.clone()
+        extend_add_plain(ref, level)
+        extend_add(pool, level)
+        err = float((pool - ref).abs().max())
+        scale = float(ref.abs().max())
+        ratio = err / scale if scale else err
+        check(np.isfinite(err) and err <= rtol * scale,
+              f"K1 vs plain on level {worst['levels']} of the first factor: "
+              f"max|err| {err:.3e} > {rtol:g}·max|pool| ({scale:.3e})")
+        if ratio >= worst["ratio"]:
+            worst.update(ratio=ratio, err=err, scale=scale)
+        worst["levels"] += 1
+
+    numeric.extend_add = held
+    try:
+        with numeric.full_fp32_matmul():
+            numeric._factor_impl(*args)
+    finally:
+        numeric.extend_add = extend_add
+    launched = extend_add.launches - counted
+    extend_add.launches = counted
+    check(launched == worst["levels"] > 0,
+          f"first factor: {launched} K1 launches on {worst['levels']} levels")
+    return (f"first factor again, K1 held against the plain extend-add on "
+            f"each of its {worst['levels']} levels: worst max|err| "
+            f"{worst['err']:.3e} (max|pool| {worst['scale']:.3e}, gate "
+            f"{rtol:g} of it)")
+
+
+def ipm_at_scale(tag: str, label: str, run, resid, levels: int,
+                 start_factors: int, max_iters: int):
+    """``run(0)`` (the starting point) and ``run(max_iters)``, the ordering
+    given: wall times and s/iteration, finite iterates, host-f64 primal and
+    dual residuals below the start's, K1 launched at least levels × factors
+    times, and the run's first factor held against the plain extend-add
+    (``k1_against_plain``).  Returns (K1 launches, s/iteration)."""
+    import numpy as np
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    start, t_start = wall(lambda: run(0))
+    extend_add.launches = 0
+    with FirstFactor() as first:
+        res, t_run = wall(lambda: run(max_iters))
+    launches = extend_add.launches
+    k1_line = k1_against_plain(first.args)
+    its = res.iterations
+    check(its >= 1, f"{label}: no iteration ran")
+    for name in ("x", "y", "z", "s"):
+        v = getattr(res, name, None)
+        check(v is None or bool(np.all(np.isfinite(v))),
+              f"{label}: non-finite {name}")
+    (p0, d0), (p1, d1) = resid(start), resid(res)
+    check(p1 < p0 and d1 < d0, f"{label}: residuals did not fall: primal "
+          f"{p0:.3e} -> {p1:.3e}, dual {d0:.3e} -> {d1:.3e}")
+    factors = start_factors + its
+    check(launches >= factors * levels,
+          f"{label}: K1 launched {launches} times, expected at least "
+          f"{factors} factors x {levels} levels")
+    per_it = (t_run - t_start) / its
+    print(f"[{tag}] {label} f32: {its} iterations in {t_run:.2f} s; the "
+          f"max_iters=0 run (symbolic analysis with the ordering given, "
+          f"set-up, start) {t_start:.2f} s, so {per_it:.3f} s/iteration; "
+          f"relative primal residual {p0:.3e} -> {p1:.3e}, dual {d0:.3e} -> "
+          f"{d1:.3e}; K1 launches {launches} >= {factors} factors x "
+          f"{levels} levels; {k1_line}")
+    return launches, per_it
+
+
+def _rel(v, ref) -> float:
+    import numpy as np
+    return float(np.linalg.norm(v) / (1.0 + np.linalg.norm(ref)))
+
+
+def profile_qp_iteration(run) -> None:
+    """One ``qp_direct`` iteration (a max_iters=1 run) under
+    ``torch.profiler``, its window opened when the KKT's symbolic analysis
+    returns: the host time of the iteration and of the factor, the panel
+    inverses and the two refined solves (each ending in a device
+    synchronisation), and the device busy share of each (the kernel time
+    inside the part's host span over that span)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from elemental_tpu_torch.optimization import kkt
+    ranges = {"factor": (kkt.KKTSystem, "prepare"),
+              "panel inverses": (kkt.KKTFactor, "default_context"),
+              "refined solves": (kkt.KKTFactor, "solve_refined")}
+    saved = {label: getattr(cls, name)
+             for label, (cls, name) in ranges.items()}
+    saved_finalize = kkt.KKTBuilder.finalize
+
+    def one_iteration(prof):
+        host = dict.fromkeys(ranges, 0.0)
+        t_start = []
+
+        def ranged(label, fn):
+            def inner(*args, **kw):
+                t0 = time.perf_counter()
+                with record_function(label):
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                host[label] += time.perf_counter() - t0
+                return out
+            return inner
+
+        def finalize(*args, **kw):
+            out = saved_finalize(*args, **kw)
+            torch.cuda.synchronize()
+            prof.start()
+            t_start.append(time.perf_counter())
+            return out
+
+        for label, (cls, name) in ranges.items():
+            setattr(cls, name, ranged(label, saved[label]))
+        kkt.KKTBuilder.finalize = finalize
+        try:
+            run(1)
+            torch.cuda.synchronize()
+            it = time.perf_counter() - t_start[0]
+            prof.stop()
+        finally:
+            for label, (cls, name) in ranges.items():
+                setattr(cls, name, saved[label])
+            kkt.KKTBuilder.finalize = saved_finalize
+        return it, host
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    it, host = one_iteration(prof)
+    # the raw events: building the profiler's event tree over the
+    # iteration's ~10⁵ kernels and their host ops takes minutes
+    t0 = time.perf_counter()
+    spans, kernels, names = {}, [], {}
+    for e in prof.profiler.kineto_results.events():
+        name, a = e.name(), e.start_ns() / 1e3
+        iv = (a, a + e.duration_ns() / 1e3)             # µs
+        if name in ranges:
+            if e.device_type() == DeviceType.CPU:     # a part's host span
+                spans.setdefault(name, []).append(iv)
+        elif e.device_type() == DeviceType.CUDA:
+            kernels.append(iv)
+            names[name] = names.get(name, 0.0) + iv[1] - iv[0]
+    ks = sorted(kernels)
+    busy = sum(b - a for a, b in ks) / 1e6
+
+    def inside(ivs):
+        return sum(max(0, min(b, y) - max(a, x)) for x, y in ivs
+                   for a, b in ks if b > x and a < y) / 1e6
+
+    parts = [f"{label} {host[label]:.3f} s = {host[label] / it:.3f} of it, "
+             f"device busy "
+             f"{inside(spans.get(label, [])) / max(host[label], 1e-9):.3f}"
+             for label in ranges]
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[14 QP] one qp_direct iteration under torch.profiler: "
+          f"{it:.3f} s on the host's clock, device busy {busy / it:.3f} "
+          f"({len(ks)} kernels and copies, {busy:.3f} s); " + "; ".join(parts)
+          + "; most device time: " + ", ".join(
+              f"{k[:40]} {v / 1e3:.1f} ms" for k, v in top)
+          + f" (events read in {time.perf_counter() - t0:.1f} s)")
+
+
+def phase_qp(n1: int, seed: int, order, max_iters: int):
+    """14: qp_direct at scale in float32 (residuals, s/iteration, K1, one
+    iteration profiled); qp_direct converged in float64 at n1 = 32 to
+    test_ipm.py:94-98's KKT gate; portfolio and nnls at their test sizes."""
+    import numpy as np
+    import scipy.optimize as so
+    import torch
+    from elemental_tpu_torch.optimization import (LPCtrl, nnls, portfolio,
+                                                  qp_direct)
+    perm, N, levels = order["perm"], order["N"], order["levels"]
+    Q, A, b, c = qp_instance(grids(n1)["qp"], seed)
+    Qs, As = Q.to_scipy(), A.to_scipy()
+
+    def run(iters):
+        return qp_direct(Q, A, b, c, LPCtrl(max_iters=iters, ordering=perm),
+                         device="cuda", dtype=torch.float32)
+
+    def resid(r):
+        return (_rel(As @ r.x - b, b),
+                _rel(Qs @ r.x + c - As.T @ r.y - r.z, c))
+
+    print(f"[14 QP] qp_direct: Q = blockdiag(L, L) of the {grids(n1)['qp']}² "
+          f"Laplacian, A = concat_fd_2d, N={N} (ordering of the QP's own "
+          f"pattern)")
+    launches, _ = ipm_at_scale("14 QP", "qp_direct", run, resid, levels, 0,
+                               max_iters)
+    profile_qp_iteration(run)
+
+    Q, A, b, c = qp_instance(32, seed)
+    r = qp_direct(Q, A, b, c, LPCtrl(tol=1e-9), device="cuda",
+                  dtype=torch.float64)
+    Qd, Ad = Q.to_dense(), A.to_dense()
+    kkt_err = float(np.abs(Qd @ r.x + c - Ad.T @ r.y - r.z).max())
+    check(r.converged and kkt_err < 1e-6 and r.x.min() > -1e-9
+          and r.z.min() > -1e-9 and abs(r.x @ r.z) < 1e-6,
+          f"qp_direct f64 n1=32: converged={r.converged}, KKT {kkt_err:.3e}")
+    rng = np.random.default_rng(222)
+    L = rng.standard_normal((8, 8))
+    xp = portfolio(L @ L.T + np.eye(8), rng.standard_normal(8), 1.0,
+                   LPCtrl(tol=1e-9), device="cuda", dtype=torch.float64)
+    check(abs(xp.sum() - 1.0) < 1e-6 and xp.min() > -1e-8,
+          f"portfolio: sum {xp.sum():.9f}, min {xp.min():.3e}")
+    rng = np.random.default_rng(165)
+    M, v = rng.standard_normal((15, 8)), rng.standard_normal(15)
+    xn = nnls(M, v, LPCtrl(tol=1e-10), device="cuda", dtype=torch.float64)
+    ref = np.linalg.norm(M @ so.nnls(M, v)[0] - v)
+    check(abs(np.linalg.norm(M @ xn - v) - ref) <= 1e-6 * ref
+          and xn.min() > -1e-8, "nnls off scipy's optimum")
+    print(f"[14 QP] f64: qp_direct at n1=32 converged in {r.iterations} "
+          f"iterations, max|Qx + c − Aᵀy − z| {kkt_err:.3e} < 1e-6, "
+          f"|xᵀz| {abs(r.x @ r.z):.3e}; portfolio sums to {xp.sum():.12f}; "
+          f"nnls residual {np.linalg.norm(M @ xn - v):.10f} (scipy "
+          f"{ref:.10f})")
+    return launches
+
+
+def phase_affine(n1: int, seed: int, orders, max_iters: int):
+    """15: lp_affine and socp_affine at scale in float32, each on the
+    ordering of its own pattern; converged in float64: lp_affine
+    against HiGHS (test_ipm.py:67-82), socp_affine against lstsq
+    (test_ipm.py:112-127), robust_least_squares and basis_pursuit_complex
+    with their gates."""
+    import numpy as np
+    import scipy.optimize as so
+    import torch
+    from elemental_tpu_torch.optimization import (Cones, LPCtrl,
+                                                  basis_pursuit_complex,
+                                                  lp_affine,
+                                                  robust_least_squares,
+                                                  socp_affine)
+    launches = 0
+    for label, kord in (("lp_affine", 1), ("socp_affine", 4)):
+        order = orders["lp_affine" if kord == 1 else "socp"]
+        perm, N, levels = order["perm"], order["N"], order["levels"]
+        A, b, G, h, c, cones = affine_instance(grids(n1)["affine"], seed,
+                                               kord)
+        As, Gs = A.to_scipy(), G.to_scipy()
+
+        def run(iters, A=A, b=b, G=G, h=h, c=c, cones=cones, kord=kord,
+                perm=perm):
+            ctrl = LPCtrl(max_iters=iters, ordering=perm)
+            if kord == 1:
+                return lp_affine(A, b, G, h, c, ctrl, device="cuda",
+                                 dtype=torch.float32)
+            return socp_affine(A, b, G, h, c, Cones(cones), ctrl,
+                               device="cuda", dtype=torch.float32)
+
+        def resid(r, As=As, Gs=Gs, b=b, h=h, c=c):
+            prim = np.concatenate([As @ r.x - b, Gs @ r.x + r.s - h])
+            return (_rel(prim, np.concatenate([b, h])),
+                    _rel(c + As.T @ r.y + Gs.T @ r.z, c))
+
+        print(f"[15 affine] {label}: A = concat_fd_2d, G = −I, "
+              f"{len(cones)} cones of order {kord}, N={N}")
+        got, _ = ipm_at_scale("15 affine", label, run, resid, levels, 0,
+                              max_iters)
+        launches += got
+
+    f64 = dict(device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(53)
+    A = rng.standard_normal((5, 8))
+    x0 = rng.standard_normal(8)
+    G = rng.standard_normal((12, 8))
+    h = G @ x0 + np.abs(rng.standard_normal(12)) + 0.1
+    c = rng.standard_normal(8)
+    r = lp_affine(A, A @ x0, G, h, c, LPCtrl(tol=1e-9), **f64)
+    ref = so.linprog(c, A_ub=G, b_ub=h, A_eq=A, b_eq=A @ x0,
+                     bounds=(None, None), method="highs")
+    check(r.converged and abs(r.objective - ref.fun) <= 1e-5 * abs(ref.fun),
+          f"lp_affine f64 {r.objective} vs HiGHS {ref.fun}")
+    B, d = rng.standard_normal((12, 5)), rng.standard_normal(12)
+    G = np.zeros((13, 6))
+    G[0, 5], G[1:, :5] = -1.0, -B
+    cs = np.zeros(6)
+    cs[5] = 1.0
+    rs = socp_affine(np.zeros((0, 6)), np.zeros(0), G,
+                     np.concatenate([[0], -d]), cs, Cones([13]),
+                     LPCtrl(max_iters=200, tol=1e-9), **f64)
+    ls_err = float(np.abs(rs.x[:5] - np.linalg.lstsq(B, d, rcond=None)[0]
+                          ).max())
+    check(rs.converged and ls_err < 1e-6, f"socp_affine LS off {ls_err:.3e}")
+    M, v = rng.standard_normal((10, 4)), rng.standard_normal(10)
+    xr = robust_least_squares(M, v, 0.1, LPCtrl(tol=1e-9, max_iters=300),
+                              **f64)
+
+    def f(w):
+        return np.linalg.norm(M @ w - v) + 0.1 * np.linalg.norm(w)
+
+    nm = so.minimize(f, np.zeros(4), method="Nelder-Mead",
+                     options={"xatol": 1e-10, "fatol": 1e-12,
+                              "maxiter": 20000})
+    check(f(xr) <= nm.fun + 1e-5, f"RLS {f(xr)} vs Nelder-Mead {nm.fun}")
+    rng = np.random.default_rng(11)
+    Ac = (rng.standard_normal((12, 30))
+          + 1j * rng.standard_normal((12, 30))) / np.sqrt(24)
+    xt = np.zeros(30, complex)
+    xt[rng.choice(30, 3, replace=False)] = (rng.standard_normal(3)
+                                            + 1j * rng.standard_normal(3))
+    xc = basis_pursuit_complex(Ac, Ac @ xt, **f64)
+    feas = np.linalg.norm(Ac @ xc - Ac @ xt) / (1 + np.linalg.norm(Ac @ xt))
+    check(feas < 1e-3 and np.abs(xc).sum() <= np.abs(xt).sum() * 1.01,
+          f"complex BP: feasibility {feas:.3e}")
+    print(f"[15 affine] f64: lp_affine {r.iterations} iterations, objective "
+          f"{r.objective:.10f} (HiGHS {ref.fun:.10f}); socp_affine LS "
+          f"{rs.iterations} iterations, max|x − lstsq| {ls_err:.3e}; RLS "
+          f"{f(xr):.10f} (Nelder-Mead {nm.fun:.10f}); complex BP ‖x‖₁ "
+          f"{np.abs(xc).sum():.6f} (generator {np.abs(xt).sum():.6f}), "
+          f"feasibility {feas:.3e}")
+    return launches
+
+
+def _same_mps(got, expect) -> bool:
+    import numpy as np
+    for k, v in expect.items():
+        g = getattr(got, k)
+        if k in ("A_eq", "A_le"):
+            g = g.to_scipy()
+            same = (g.shape == v.shape and np.array_equal(g.indptr, v.indptr)
+                    and np.array_equal(g.indices, v.indices)
+                    and np.array_equal(g.data, v.data))
+        elif isinstance(v, np.ndarray):
+            same = np.array_equal(g, v)
+        else:
+            same = g == v
+        if not same:
+            print(f"[16 MPS] read_mps differs in {k}")
+            return False
+    return True
+
+
+def phase_mps(path: str, expect: dict, n1: int, seed: int, order,
+              max_iters: int, tmpdir: str):
+    """16: the general-form MPS file at scale read back exactly and solved
+    by solve_mps in float32; the same generator at n1 = 16 converged in
+    float64 to HiGHS's objective on the general form (rtol 1e-6)."""
+    import numpy as np
+    import scipy.optimize as so
+    import torch
+    from elemental_tpu_torch.optimization import (LPCtrl, mps_to_standard,
+                                                  solve_mps)
+    from elemental_tpu_torch.sparse import read_mps
+    perm, N, levels = order["perm"], order["N"], order["levels"]
+    lp, t_read = wall(lambda: read_mps(path))
+    check(_same_mps(lp, expect), "read_mps did not give back the file")
+    A, b, c, _, _ = mps_to_standard(lp)
+    As = A.to_scipy()
+
+    def run(iters):
+        return solve_mps(lp, LPCtrl(max_iters=iters, ordering=perm),
+                         device="cuda", dtype=torch.float32)[0]
+
+    def resid(r):
+        return _rel(As @ r.x - b, b), _rel(c - As.T @ r.y - r.z, c)
+
+    print(f"[16 MPS] general form on concat_fd_2d at n1={grids(n1)['mps']}: "
+          f"{lp.A_eq.height} E rows, {lp.A_le.height} ≤ rows (RANGES "
+          f"included), {int(np.isinf(lp.lower).sum())} columns without a "
+          f"lower bound, {int(np.isfinite(lp.upper).sum())} with an upper "
+          f"one; read back exactly in {t_read:.2f} s; standardized KKT "
+          f"N={N}")
+    launches, _ = ipm_at_scale("16 MPS", "solve_mps", run, resid, levels, 1,
+                               max_iters)
+
+    import os
+    text, _ = general_form_lp(16, seed)
+    small = os.path.join(tmpdir, "gen16.mps")
+    with open(small, "w") as f:
+        f.write(text)
+    lp = read_mps(small)
+    res, x = solve_mps(lp, LPCtrl(tol=1e-9, max_iters=200), device="cuda",
+                       dtype=torch.float64)
+    bounds = [(None if np.isneginf(lo) else lo, None if np.isposinf(hi)
+               else hi) for lo, hi in zip(lp.lower, lp.upper)]
+    ref = so.linprog(lp.c, A_ub=lp.A_le.to_scipy(), b_ub=lp.b_le,
+                     A_eq=lp.A_eq.to_scipy(), b_eq=lp.b_eq, bounds=bounds,
+                     method="highs")
+    want = ref.fun + lp.c0
+    check(ref.success and res.converged
+          and abs(res.objective - want) <= 1e-6 * abs(want),
+          f"solve_mps f64 n1=16: {res.objective} vs HiGHS {want}")
+    print(f"[16 MPS] f64 at n1=16: {res.iterations} iterations, objective "
+          f"{res.objective:.10f}, HiGHS on the general form {want:.10f} "
+          f"(rel {abs(res.objective - want) / abs(want):.2e})")
+    return launches
+
+
+def phase_sparse_min(n1: int, seed: int, orders):
+    """17: sparse_least_squares on the extended Laplacian and sparse_lse on
+    the FD2D stencil with a dense column, at the LP's N, in float64 and
+    float32 on one ordering each, held to the drivers' gates
+    (sequential_least_squares.py:43-50, sequential_lse.py:39-53)."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.core.policy import residual_bound
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    from elemental_tpu_torch.lapack import sparse_least_squares, sparse_lse
+    g = grids(n1)
+    launches = 0
+    A = extended_laplacian(g["ls"], g["ls"])
+    As = A.to_scipy()
+    b = np.random.default_rng(4).standard_normal(A.height)
+    perm, N, levels = (orders["ls"][k] for k in ("perm", "N", "levels"))
+    for dt in (torch.float64, torch.float32):
+        extend_add.launches = 0
+        with FirstFactor() as first:
+            x, t = wall(lambda: sparse_least_squares(A, b, device="cuda",
+                                                     dtype=dt, perm=perm))
+        launches += extend_add.launches
+        k1_line = k1_against_plain(first.args)
+        check(extend_add.launches >= levels, "LS: K1 not launched a level")
+        x = x.cpu().numpy().astype(np.float64)
+        gv = float(np.abs(As.T @ (b - As @ x)).max())
+        bound = residual_bound(dt, A.width) * np.abs(As.data).max() \
+            * np.linalg.norm(b)
+        check(gv < bound, f"LS {dt}: ‖Aᵀr‖∞ {gv:.3e} >= {bound:.3e}")
+        print(f"[17 sparse LS] {str(dt)[6:]} extended Laplacian {g['ls']}² "
+              f"({A.height}×{A.width}, N={N}): {t:.2f} s (symbolic "
+              f"analysis with the ordering, factor, 9 solves), ‖Aᵀ(b − "
+              f"Ax)‖∞ {gv:.3e} < {bound:.3e}, K1 launches "
+              f"{extend_add.launches}; {k1_line}")
+    A, B, c, d = lse_instance(g["lse"], seed)
+    As, Bd = A.to_scipy(), B.to_dense()
+    perm, N, levels = (orders["lse"][k] for k in ("perm", "N", "levels"))
+    for dt in (torch.float64, torch.float32):
+        extend_add.launches = 0
+        with FirstFactor() as first:
+            (x, _), t = wall(lambda: sparse_lse(A, B, c, d, device="cuda",
+                                                dtype=dt, perm=perm))
+        launches += extend_add.launches
+        k1_line = k1_against_plain(first.args)
+        check(extend_add.launches >= levels, "LSE: K1 not launched a level")
+        x = x.cpu().numpy().astype(np.float64)
+        bound = residual_bound(dt, A.width)
+        cons = float(np.abs(Bd @ x - d).max())
+        gr = As.T @ (c - As @ x)
+        perp = float(np.abs(gr - Bd.T @ np.linalg.lstsq(Bd.T, gr,
+                                                        rcond=None)[0]).max())
+        pbound = bound * (np.abs(As.data).max() * np.linalg.norm(c) + 1)
+        check(cons < bound * (1 + np.abs(d).max()) and perp < pbound,
+              f"LSE {dt}: constraint {cons:.3e}, projected gradient "
+              f"{perp:.3e}")
+        print(f"[17 sparse LSE] {str(dt)[6:]} FD2D {g['lse']}² with a dense "
+              f"column, p={B.height} (N={N}): {t:.2f} s, ‖Bx − d‖∞ "
+              f"{cons:.3e} < {bound * (1 + np.abs(d).max()):.3e}, "
+              f"‖P·Aᵀr‖∞ {perp:.3e} < {pbound:.3e}, K1 launches "
+              f"{extend_add.launches}; {k1_line}")
+    return launches
+
+
+def phases_ipm_tier(n1: int, seed: int, max_iters: int, orders: dict,
+                    mps_path: str, mps_expect: dict, tmp: str) -> int:
+    """Phases 14-17, each timed; returns their K1 launches."""
+    import torch
+    launches = 0
+    for tag, phase in (
+            ("14 QP", lambda: phase_qp(n1, seed, orders["qp"], max_iters)),
+            ("15 affine", lambda: phase_affine(n1, seed, orders, max_iters)),
+            ("16 MPS", lambda: phase_mps(mps_path, mps_expect, n1, seed,
+                                         orders["mps"], max_iters, tmp)),
+            ("17 sparse LS", lambda: phase_sparse_min(n1, seed, orders))):
+        t0 = time.perf_counter()
+        launches += phase()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
                     help="grid side of the LP (n = 2·n1² variables)")
     ap.add_argument("--max-iters", type=int, default=3,
-                    help="IPM iterations of the LP phase")
+                    help="IPM iterations of each at-scale IPM run")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import elemental_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_phases(args, tmp, t_start)
+
+
+def run_phases(args, tmp: str, t_start: float) -> int:
+    """Phases 3-17 and the JSON lines; phase 16's file goes into ``tmp``;
+    ``t_start``: when phase 1 began."""
+    import numpy as np
+    import torch
     from elemental_tpu_torch.matrices import concat_fd_2d, sparse_laplacian_2d
     from elemental_tpu_torch.optimization import LPCtrl
     from elemental_tpu_torch.optimization.lp import (_build_lp_kkt,
                                                      _resolve_numerics,
                                                      sparse_ruiz)
-
-    phase_card()
-    phase_build()
-
+    # phases 14-17's host analyses run beside the LP's, not after it
+    mps_path, mps_expect, wait_analyses = start_ipm_analyses(
+        args.n1, args.seed, tmp)
     A = concat_fd_2d(args.n1, args.n1)
     m, n = A.shape
     rng = np.random.default_rng(args.seed)
@@ -1185,7 +2035,8 @@ def main() -> int:
     t_host = time.perf_counter() - t0
     print(f"[3 K1] host analysis of the KKT (N={kkt.N}, nnz={kkt.nnz}, "
           f"{kkt.symb.num_levels} levels, pool {kkt.symb.pool_size}): "
-          f"{t_host:.2f} s")
+          f"{t_host:.2f} s, beside phases 14-17's")
+    orders = wait_analyses()
     k1 = phase_k1(kkt, args.seed)
     phase_ldl()
     launches = phase_lp(A, b, c, kkt, args.max_iters)
@@ -1211,6 +2062,16 @@ def main() -> int:
     k6_launches, k6 = phase_k6(args.seed)
     print(f"[10-13] the bridged tier and the dense kernels took "
           f"{time.perf_counter() - t0:.1f} s (host planning included)")
+
+    t0 = time.perf_counter()
+    launches += phases_ipm_tier(args.n1, args.seed, args.max_iters, orders,
+                                mps_path, mps_expect, tmp)
+    print(f"[14-17] the QP, affine LP, SOCP, MPS and sparse least-squares "
+          f"phases took {time.perf_counter() - t0:.1f} s (host analysis "
+          f"included)")
+
+    print(f"[1-17] every phase, the kernels' build included, took "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",
               plain_ms="plain_ms", bound_key="bound", library_ms=None):

@@ -2,9 +2,12 @@
 
 Ported so far, each slice with its TPU kernels written by hand for Hopper:
 
-* the sparse-direct interior-point LP path (``lp_direct``), with the
-  multifrontal extend-add K1 (``kernels/extend_add.py``,
-  ``csrc/extend_add.cu``);
+* the sparse-direct interior-point tier: ``lp_direct``, ``lp_affine``,
+  the MPS front end (``sparse.read_mps``, ``solve_mps``), ``qp_direct``,
+  ``qp_box``, ``qp_affine``, ``socp_affine``, the application solvers of
+  ``optimization/solvers.py`` and the sparse least squares of
+  ``lapack/sparse_min.py``, all factoring through the multifrontal
+  extend-add K1 (``kernels/extend_add.py``, ``csrc/extend_add.cu``);
 * the SpMV planner (``sparse.plan_spmv``: DIA, RCM reordering, CSR) and the
   Krylov solvers that drive it (``lapack.cg``, ``gmres``, ``fgmres``,
   ``lgmres``, ``refined_solve``), with the stencil SpMV K3

@@ -4,8 +4,8 @@ file.
 Two toolchains, both producing shared libraries with a plain C interface that
 :mod:`ctypes` loads:
 
-* ``g++`` for the host symbolic kernels (the JAX package's
-  ``elemental_tpu/native/symbolic.cpp``, read in place, not copied);
+* ``g++`` for the host symbolic kernels (``csrc/symbolic.cpp``, the port's
+  copy of the JAX package's ``native/symbolic.cpp``);
 * ``nvcc`` for the CUDA kernels under ``csrc/``, compiled for Hopper
   (``sm_90a``).
 

@@ -37,11 +37,18 @@ class KKTBuilder:
         self._scols: List[np.ndarray] = []
         self._svals: List[np.ndarray] = []
         self._dyn: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._reg = np.zeros(self.N, self.dtype)
 
     def add_static(self, rows, cols, vals) -> None:
         self._srows.append(np.asarray(rows, np.int64))
         self._scols.append(np.asarray(cols, np.int64))
         self._svals.append(np.asarray(vals, self.dtype))
+
+    def add_regularization(self, idx, vals) -> None:
+        """Static diagonal regularization (+γ, −δ): added as static entries
+        and kept, signed, as :attr:`KKTSystem.reg`."""
+        self.add_static(idx, idx, vals)
+        np.add.at(self._reg, np.asarray(idx, np.int64), vals)
 
     def add_dynamic(self, rows, cols) -> int:
         """Register a dynamic slot; per-iteration values are scatter-ADDED
@@ -89,7 +96,7 @@ class KKTBuilder:
                          build_ea_plan(host).to(device),
                          torch.as_tensor(base).to(device, dtype),
                          [to(p) for p in dyn_pos], to(rows), to(cols),
-                         dtype)
+                         dtype, torch.as_tensor(self._reg).to(device, dtype))
 
 
 @dataclasses.dataclass
@@ -106,6 +113,7 @@ class KKTSystem:
     csr_rows: torch.Tensor           # (nnz,) int64 row ids
     csr_cols: torch.Tensor           # (nnz,) int64
     dtype: torch.dtype
+    reg: torch.Tensor                # (N,) signed static regularization
 
     @property
     def nnz(self) -> int:
@@ -139,7 +147,10 @@ class KKTSystem:
         """Equilibrate + factor the assembled KKT.  ``pivot_floor``:
         optional (N,) signed floors (original order, equilibrated scale)
         for the dynamic pivot regularization (reference
-        ``RegularizedLDL``)."""
+        ``RegularizedLDL``).  Without floors, a factor with a pivot that is
+        exactly zero (where the JAX package divides by it) is taken again
+        with :attr:`reg` as the floors; any other factor is kept as it is,
+        at the cost of one check on the host."""
         if equilibrate:
             v, scale = self.equilibrate(vals)
         else:
@@ -147,6 +158,10 @@ class KKTSystem:
                                         device=vals.device)
         num = _mf_factor(self.symb, v, ea_plan=self.ea_plan,
                          dtype=v.dtype, spd=spd, pivot_floor=pivot_floor)
+        if pivot_floor is None and bool((num.d == 0).any()):
+            num = _mf_factor(self.symb, v, ea_plan=self.ea_plan,
+                             dtype=v.dtype, spd=spd,
+                             pivot_floor=self.reg * scale * scale)
         return KKTFactor(self, vals, num.pool, num.d, scale)
 
     def matvec(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -215,6 +230,15 @@ class KKTFactor:
         per factor, pass to every ``solve_refined`` against it."""
         return self._ldl().solve_context()
 
+    def default_context(self):
+        """The context ``solve_refined`` builds when given none: the panel
+        inverses above ``SOLVE_CONTEXT_MIN_N``, else None (substitution).
+        An engine that solves twice against one factor builds it once here
+        and passes it to both solves, with the same numbers."""
+        if self.sys.N > self.SOLVE_CONTEXT_MIN_N:
+            return self.solve_context()
+        return None
+
     def solve_refined(self, rhs: torch.Tensor,
                       reg_diag: Optional[torch.Tensor] = None,
                       iters: int = 2, ctx=None) -> torch.Tensor:
@@ -230,8 +254,8 @@ class KKTFactor:
             return kx
 
         N = rhs.shape[0]
-        if ctx is None and N > self.SOLVE_CONTEXT_MIN_N:
-            ctx = self.solve_context()
+        if ctx is None:
+            ctx = self.default_context()
 
         dev, dt = rhs.device, rhs.dtype
         beta = torch.linalg.norm(rhs)

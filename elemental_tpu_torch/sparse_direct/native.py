@@ -1,9 +1,9 @@
 """ctypes bridge to the native C++ symbolic kernels.
 
-The source is the JAX package's ``elemental_tpu/native/symbolic.cpp``
-(JAX-free C++: quotient-graph minimum degree, the SuiteSparse-AMD slot of
-reference §2.6 item 2, and reverse Cuthill-McKee).  It is read in place,
-compiled with ``g++`` into the port's ``_build/`` at first use, and
+The source is the port's own ``csrc/symbolic.cpp`` (a copy of the JAX
+package's ``native/symbolic.cpp``: quotient-graph minimum degree, the
+SuiteSparse-AMD slot of reference §2.6 item 2, and reverse Cuthill-McKee).
+It is compiled with ``g++`` into the port's ``_build/`` at first use, and
 required: a failed build raises.
 """
 
@@ -16,16 +16,14 @@ from typing import List
 
 import numpy as np
 
-from .._build import build_host_library
+from .._build import CSRC_DIR, build_host_library
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                      "elemental_tpu", "native", "symbolic.cpp")
+SOURCE = os.path.join(CSRC_DIR, "symbolic.cpp")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_host_library("elemental_native",
-                                         [os.path.normpath(SOURCE)]))
+    lib = ctypes.CDLL(build_host_library("elemental_native", [SOURCE]))
     csr_sig = [
         ctypes.c_int64,
         np.ctypeslib.ndpointer(np.int64, flags="C"),

@@ -1,10 +1,13 @@
 """Symbolic analysis (reference ``src/lapack_like/factor/LDL/sparse/symbolic``:
 ``Separator``/``NodeInfo`` trees, ``Analysis.cpp``, elimination structures).
 
-Host-side NumPy, ported unchanged from ``elemental_tpu/sparse_direct/
-symbolic.py``: elimination tree (Liu), postorder, per-column structures,
+Host-side NumPy, ported from ``elemental_tpu/sparse_direct/symbolic.py``
+with the same plans: elimination tree (Liu), per-column structures,
 fundamental supernodes with relaxed amalgamation, and the level-bucketed
-front plan consumed by the numeric phase as flat scatter maps.
+front plan consumed by the numeric phase as flat scatter maps.  Where the
+reference loops in Python over every column or entry (the column patterns,
+the supernode starts, the assembly and diagonal maps, the child rows'
+positions in their parents' fronts), the port uses array operations.
 :meth:`SymbolicFactorization.to` moves the plan's index arrays onto a
 device; :func:`from_reference` takes a plan made by the JAX package, so both
 packages can compute from identical plans.
@@ -47,55 +50,40 @@ def etree(A: SparseMatrix) -> np.ndarray:
     return parent
 
 
-def postorder(parent: np.ndarray) -> np.ndarray:
-    """Post-ordering of a forest given parent pointers."""
-    n = parent.shape[0]
-    children: List[List[int]] = [[] for _ in range(n)]
-    roots = []
-    for v in range(n):
-        p = parent[v]
-        if p == -1:
-            roots.append(v)
-        else:
-            children[p].append(v)
-    out = np.empty(n, np.int64)
-    idx = 0
-    stack = [(r, False) for r in reversed(roots)]
-    while stack:
-        v, done = stack.pop()
-        if done:
-            out[idx] = v
-            idx += 1
-        else:
-            stack.append((v, True))
-            for c in reversed(children[v]):
-                stack.append((c, False))
-    return out
-
-
 def column_structures(A: SparseMatrix, parent: np.ndarray
                       ) -> List[np.ndarray]:
     """Full symbolic factor structure: struct(j) = rows of L below the
-    diagonal in column j = A-pattern(j) ∪ (∪_children struct(c) \\ {j})."""
+    diagonal in column j = A-pattern(j) ∪ (∪_children struct(c) \\ {j}),
+    each sorted and unique.  ``parent``: the elimination tree, whose
+    parents follow their children (parent[j] > j), so the columns are
+    taken in ascending order."""
     n = A.height
-    children: List[List[int]] = [[] for _ in range(n)]
-    for v in range(n):
-        if parent[v] != -1:
-            children[parent[v]].append(v)
+    # A's off-diagonal pattern by column: a_rows[a_ptr[j]:a_ptr[j + 1]]
+    # holds the rows i > j, sorted and unique
     rows = np.repeat(np.arange(n), A.row_nnz())
-    a_cols: List[List[int]] = [[] for _ in range(n)]
-    for i, j in zip(rows, A.colind):
-        if i > j:
-            a_cols[j].append(int(i))
-        elif j > i:
-            a_cols[i].append(int(j))
+    cols = np.asarray(A.colind, np.int64)
+    lo, hi = np.minimum(rows, cols), np.maximum(rows, cols)
+    key = np.unique((lo * n + hi)[lo != hi])
+    a_rows = key % n
+    a_ptr = np.searchsorted(key // n, np.arange(n + 1)).tolist()
+    # children by parent: kids[c_ptr[j]:c_ptr[j + 1]]
+    child = np.nonzero(parent != -1)[0]
+    kids = child[np.argsort(parent[child], kind="stable")].tolist()
+    c_ptr = np.searchsorted(np.sort(parent[child]), np.arange(n + 1)
+                            ).tolist()
     struct: List[np.ndarray] = [None] * n  # type: ignore
-    for j in postorder(parent):
-        parts = [np.asarray(a_cols[j], np.int64)]
-        parts += [struct[c] for c in children[j]]
-        s = np.unique(np.concatenate(parts)) if len(parts) > 1 \
-            else np.unique(parts[0])
-        struct[j] = s[s > j]
+    for j in range(n):
+        own = a_rows[a_ptr[j]:a_ptr[j + 1]]
+        c0, c1 = c_ptr[j], c_ptr[j + 1]
+        if c0 == c1:
+            struct[j] = own
+            continue
+        parts = [own] + [struct[c] for c in kids[c0:c1]]
+        s = np.concatenate(parts)
+        s = s[s > j]
+        s.sort()
+        struct[j] = s[np.concatenate(([True], s[1:] != s[:-1]))] \
+            if s.size else s
     return struct
 
 
@@ -114,17 +102,17 @@ def find_supernodes(parent: np.ndarray, struct: List[np.ndarray],
     struct(j+1)) with relaxed amalgamation of small supernodes into their
     parent when the extra fill is bounded (reference front amalgamation)."""
     n = parent.shape[0]
-    # fundamental supernode starts
-    starts = [0]
-    for j in range(1, n):
-        prev = j - 1
-        fused = (parent[prev] == j
-                 and len(struct[prev]) == len(struct[j]) + 1
-                 and struct[prev][0] == j
-                 and np.array_equal(struct[prev][1:], struct[j]))
-        if not fused:
-            starts.append(j)
-    starts.append(n)
+    # fundamental supernode starts: j starts one unless column j - 1 fuses
+    # into it; the cheap tests first, over all columns at once
+    lens = np.fromiter((len(st) for st in struct), np.int64, n)
+    cand = np.nonzero((parent[:-1] == np.arange(1, n))
+                      & (lens[:-1] == lens[1:] + 1))[0] + 1
+    fused = np.zeros(n, bool)
+    for j in cand.tolist():
+        prev = struct[j - 1]
+        fused[j] = prev[0] == j and np.array_equal(prev[1:], struct[j])
+    fused[0] = False
+    starts = np.nonzero(~fused)[0].tolist() + [n]
 
     sns: List[Supernode] = []
     col2sn = np.empty(n, np.int64)
@@ -205,10 +193,10 @@ def _amalgamate(sns: List[Supernode], relax: int) -> List[Supernode]:
             extra = len(sn.struct) - (par.cols[1] - par.cols[0]
                                       + len(par.struct))
             if extra <= relax:
-                merged_struct = np.array(
-                    sorted(set(sn.struct.tolist()) - set(
-                        range(par.cols[0], par.cols[1]))
-                        | set(par.struct.tolist())), np.int64)
+                st = sn.struct
+                merged_struct = np.union1d(
+                    st[(st < par.cols[0]) | (st >= par.cols[1])],
+                    par.struct).astype(np.int64)
                 sns[p] = Supernode((sn.cols[0], par.cols[1]), merged_struct,
                                    par.parent)
                 alive[i] = False
@@ -395,9 +383,6 @@ def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
         offset += nf * S * S
     pool_size = offset
 
-    def flat(lev: LevelPlan, slot: int, i: int, j: int) -> int:
-        return lev.offset + (slot * lev.front_size + i) * lev.front_size + j
-
     # column → supernode
     col2sn = np.empty(n, np.int64)
     for i, sn in enumerate(sns):
@@ -423,53 +408,64 @@ def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
     prow = np.repeat(np.arange(n), Ap.row_nnz())
     pcol = np.asarray(Ap.colind, np.int64)
     s_of = col2sn[pcol]
-    asm_dst = np.empty(Ap.nnz, np.int64)
-    order = np.argsort(s_of, kind="stable")
-    bounds = np.searchsorted(s_of[order], np.arange(n_sn + 1))
-    for s in range(n_sn):
-        sel = order[bounds[s]:bounds[s + 1]]
-        if sel.size == 0:
-            continue
-        rp = np.searchsorted(sn_rows[s], prow[sel])
-        asm_dst[sel] = sn_off[s] + rp * sn_S[s] + (pcol[sel] - sn_a[s])
+    # every front's rows in one sorted key array: supernode·(n+1) + row
+    sn_len = np.fromiter((len(r) for r in sn_rows), np.int64, n_sn)
+    sn_start = np.cumsum(sn_len) - sn_len
+    row_keys = (np.repeat(np.arange(n_sn), sn_len) * (n + 1)
+                + np.concatenate(sn_rows))
+    rp = np.searchsorted(row_keys, s_of * (n + 1) + prow) - sn_start[s_of]
+    asm_dst = sn_off[s_of] + rp * sn_S[s_of] + (pcol - sn_a[s_of])
     asm_lev = sn_lev[s_of]
     asm_dst_all = [asm_dst[asm_lev == li] for li in range(len(levels))]
     asm_src_all = [val_map[asm_lev == li] for li in range(len(levels))]
 
     # extend-add child → parent: per child one vectorized lower-triangle
-    # index grid (reference `childRelInds`, NodeInfo.hpp:27-110)
+    # index grid (reference `childRelInds`, NodeInfo.hpp:27-110); the
+    # positions of every child's rows in its parent's front in one search
+    sn_par = np.fromiter((sn.parent for sn in sns), np.int64, n_sn)
+    sn_ns = np.fromiter((sn.cols[1] - sn.cols[0] for sn in sns), np.int64,
+                        n_sn)
+    owner = np.repeat(np.arange(n_sn), sn_len)
+    host = np.where(sn_par[owner] == -1, owner, sn_par[owner])
+    rel_all = (np.searchsorted(row_keys, host * (n + 1) + row_keys % (n + 1))
+               - sn_start[host])
     child_dst_all: List[List[np.ndarray]] = [[] for _ in levels]
     child_src_all: List[List[np.ndarray]] = [[] for _ in levels]
     tril_cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-    for ci, sn in enumerate(sns):
-        p = sn.parent
-        nr = len(sn.struct)
+    grid_cache: Dict[Tuple[int, int], np.ndarray] = {}
+    for p, nsc, start, ln, Sc, off_c in zip(
+            sn_par.tolist(), sn_ns.tolist(), sn_start.tolist(),
+            sn_len.tolist(), sn_S.tolist(), sn_off.tolist()):
+        nr = ln - nsc
         if p == -1 or nr == 0:
             continue
-        plev_i = int(sn_lev[p])
-        nsc = sn.cols[1] - sn.cols[0]
-        rel = np.searchsorted(sn_rows[p], sn.struct)
         if nr not in tril_cache:
             tril_cache[nr] = np.tril_indices(nr)
         ai, bi = tril_cache[nr]
-        Sc, Sp_ = int(sn_S[ci]), int(sn_S[p])
+        if (nr, Sc) not in grid_cache:
+            grid_cache[nr, Sc] = ai * Sc + bi
+        rel = rel_all[start + nsc:start + ln]
+        Sp_ = int(sn_S[p])
+        plev_i = int(sn_lev[p])
         child_src_all[plev_i].append(
-            sn_off[ci] + (nsc + ai) * Sc + (nsc + bi))
-        child_dst_all[plev_i].append(
-            sn_off[p] + rel[ai] * Sp_ + rel[bi])
+            grid_cache[nr, Sc] + (off_c + nsc * (Sc + 1)))
+        dst = (rel * Sp_)[ai]
+        dst += rel[bi]
+        dst += int(sn_off[p])
+        child_dst_all[plev_i].append(dst)
 
-    # diagonal extraction
+    # diagonal extraction: column k of the front in slot f sits at
+    # offset + (f·S + k)·S + k
     nnz_factor = 0
     for lev_i, lev in enumerate(levels):
-        diag_dst, diag_cols = [], []
-        for slot, i in enumerate(lev.sn_ids):
-            sn = sns[int(i)]
-            a, b = sn.cols
-            for k in range(b - a):
-                diag_dst.append(flat(lev, slot, k, k))
-                diag_cols.append(a + k)
-            nnz_factor += (b - a) * (b - a + 1) // 2 \
-                + (b - a) * len(sn.struct)
+        ns = lev.ns
+        slot = np.repeat(np.arange(ns.size), ns)
+        k = np.arange(int(ns.sum())) - np.repeat(np.cumsum(ns) - ns, ns)
+        S = lev.front_size
+        diag_dst = lev.offset + (slot * S + k) * S + k
+        diag_cols = sn_a[lev.sn_ids][slot] + k
+        nnz_factor += int((ns * (ns + 1) // 2
+                           + ns * (sn_len[lev.sn_ids] - ns)).sum())
         lev.asm_dst = np.asarray(asm_dst_all[lev_i], np.int64)
         lev.asm_src = np.asarray(asm_src_all[lev_i], np.int64)
         lev.child_dst = (np.concatenate(child_dst_all[lev_i])

@@ -1012,3 +1012,226 @@ def test_elementwise_wrappers_refuse_bad_inputs(cuda):
         ew.axpy(1.0, x, x[:4])
     with pytest.raises(ValueError, match="2-D"):
         ew.fill((8,), 1.0, device=cuda)
+
+
+# --------------------------------------------------------------------------
+# The rest of the IPM tier: QP, affine LP, SOCP, MPS, sparse least squares
+# --------------------------------------------------------------------------
+
+def _qp_case(n1=6, seed=0):
+    """A small qp_direct instance: Q = blockdiag(L, L) of the n1² grid
+    Laplacian, A = concat_fd_2d(n1, n1), b = A·x0 with x0 > 0."""
+    from elemental_tpu_torch.matrices import sparse_laplacian_2d
+    A = concat_fd_2d(n1, n1)
+    L = sparse_laplacian_2d(n1, n1, scaled=False)
+    h = L.height
+    Q = SparseMatrix.from_coo(2 * h, 2 * h,
+                              np.concatenate([L.row_ids(), L.row_ids() + h]),
+                              np.concatenate([L.colind, L.colind + h]),
+                              np.concatenate([L.vals, L.vals]))
+    rng = np.random.default_rng(seed)
+    b = A.to_scipy() @ (np.abs(rng.standard_normal(A.width)) + 0.1)
+    return Q, A, b, rng.standard_normal(A.width)
+
+
+def _affine_case(seed=53):
+    """test_ipm.py:67's lp_affine instance."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((5, 8))
+    x0 = rng.standard_normal(8)
+    G = rng.standard_normal((12, 8))
+    h = G @ x0 + np.abs(rng.standard_normal(12)) + 0.1
+    return A, A @ x0, G, h, rng.standard_normal(8)
+
+
+def _socp_case(seed=4):
+    """Cones of orders 3, 1, 5, 2, with a strictly feasible primal and
+    dual."""
+    from elemental_tpu_torch.optimization import Cones
+    rng = np.random.default_rng(seed)
+    cones = Cones([3, 1, 5, 2, 1])
+    inner = np.zeros(cones.dim)
+    for f, o in zip(cones.first, cones.orders):
+        v = rng.standard_normal(o) * 0.3
+        v[0] = np.linalg.norm(v[1:]) + 1.0
+        inner[f:f + o] = v
+    G = rng.standard_normal((cones.dim, 6))
+    A = rng.standard_normal((2, 6))
+    x0 = rng.standard_normal(6)
+    c = -A.T @ rng.standard_normal(2) - G.T @ (0.7 * inner + 0.2)
+    return A, A @ x0, G, G @ x0 + inner, c, cones
+
+
+def _engine_runs(name, device, dtype=torch.float64):
+    """(result, x) of one engine of the tier on a small instance."""
+    from elemental_tpu_torch.optimization import (lp_affine, qp_affine,
+                                                  socp_affine)
+    from elemental_tpu_torch.optimization import qp_direct
+    kw = dict(device=device, dtype=dtype)
+    if name == "qp_direct":
+        r = qp_direct(*_qp_case(), LPCtrl(tol=1e-9), **kw)
+    elif name == "lp_affine":
+        r = lp_affine(*_affine_case(), LPCtrl(tol=1e-9), **kw)
+    elif name == "qp_affine":
+        rng = np.random.default_rng(5)
+        M = rng.standard_normal((8, 8))
+        A = rng.standard_normal((2, 8))
+        r = qp_affine(M @ M.T + 8 * np.eye(8), A,
+                      A @ rng.uniform(-0.4, 0.4, 8),
+                      np.concatenate([np.eye(8), -np.eye(8)]), np.ones(16),
+                      rng.standard_normal(8), LPCtrl(tol=1e-8), **kw)
+    else:
+        A, b, G, h, c, cones = _socp_case()
+        r = socp_affine(A, b, G, h, c, cones, LPCtrl(tol=1e-9,
+                                                     max_iters=200), **kw)
+    return r, r.x
+
+
+@pytest.mark.parametrize("name", ["qp_direct", "lp_affine", "qp_affine",
+                                  "socp_affine"])
+def test_ipm_engines_on_card_match_cpu(cuda, name):
+    """Each engine in float64 on the card: the CPU's iterations, objective
+    and x within 1e-8, with K1 launched in every factor."""
+    ref, xr = _engine_runs(name, "cpu")
+    before = extend_add.launches
+    got, xg = _engine_runs(name, cuda)
+    assert extend_add.launches - before >= got.iterations
+    assert ref.converged and got.converged
+    assert got.iterations == ref.iterations
+    np.testing.assert_allclose(got.objective, ref.objective, rtol=1e-8)
+    np.testing.assert_allclose(xg, xr, atol=1e-8)
+
+
+def test_solve_mps_on_card_matches_cpu(cuda, tmp_path):
+    """A general-form MPS file (every bound kind, RANGES, an objective
+    constant) through read_mps and solve_mps in float64, card against CPU."""
+    from elemental_tpu_torch.optimization import solve_mps
+    from elemental_tpu_torch.sparse import read_mps
+    path = tmp_path / "lp.mps"
+    path.write_text("""NAME T
+ROWS
+ N  OBJ
+ E  R1
+ L  R2
+ G  R3
+COLUMNS
+    X1  OBJ  1.0  R1  1.0
+    X1  R2  2.0  R3  1.0
+    X2  OBJ  -1.0  R1  1.0
+    X2  R3  1.0
+    X3  OBJ  0.5  R2  1.0
+    X4  OBJ  2.0  R1  -1.0
+    X5  OBJ  -0.5  R3  -1.0
+    X5  R1  0.5
+RHS
+    RHS  OBJ  -3.0  R1  1.0
+    RHS  R2  4.0  R3  -2.0
+RANGES
+    RNG  R2  6.0
+BOUNDS
+ UP BND  X1  3.0
+ LO BND  X2  -1.0
+ UP BND  X2  2.0
+ FR BND  X3
+ FX BND  X4  0.5
+ MI BND  X5
+ UP BND  X5  1.0
+ENDATA
+""")
+    lp = read_mps(str(path))
+    assert lp.c0 == 3.0
+    ref, xr = solve_mps(lp, LPCtrl(tol=1e-9), device="cpu",
+                        dtype=torch.float64)
+    before = extend_add.launches
+    got, xg = solve_mps(lp, LPCtrl(tol=1e-9), device=cuda,
+                        dtype=torch.float64)
+    assert extend_add.launches - before >= got.iterations + 1
+    assert ref.converged and got.converged
+    assert got.iterations == ref.iterations
+    np.testing.assert_allclose(got.objective, ref.objective, rtol=1e-8)
+    np.testing.assert_allclose(xg, xr, atol=1e-8)
+
+
+@pytest.mark.parametrize("which", ["ls", "lse"])
+def test_sparse_min_on_card_matches_cpu(cuda, which):
+    """sparse_least_squares (a 12×12 extended Laplacian) and sparse_lse (a
+    10×10 FD2D with its dense column) in float64: card against CPU within
+    1e-8 relative, K1 launched."""
+    from elemental_tpu_torch.lapack import sparse_least_squares, sparse_lse
+    rng = np.random.default_rng(4)
+    if which == "ls":
+        A = sparse_laplacian_2d(12, 12, scaled=False)
+        A = SparseMatrix.from_coo(
+            2 * A.height, A.width,
+            np.concatenate([A.row_ids(), np.arange(A.width) + A.height]),
+            np.concatenate([A.colind, np.arange(A.width)]),
+            np.concatenate([A.vals, np.full(A.width, 8.0)]))
+        b = rng.standard_normal(A.height)
+
+        def run(dev):
+            return sparse_least_squares(A, b, device=dev,
+                                        dtype=torch.float64)
+    else:
+        A = sparse_laplacian_2d(10, 10, scaled=False)
+        B = SparseMatrix.from_dense(rng.uniform(0, 1, (5, A.width)))
+        c, d = rng.standard_normal(A.width), rng.standard_normal(5)
+
+        def run(dev):
+            return sparse_lse(A, B, c, d, device=dev,
+                              dtype=torch.float64)[0]
+    ref = run("cpu").numpy()
+    before = extend_add.launches
+    got = run(cuda)
+    assert got.device.type == "cuda" and extend_add.launches > before
+    got = got.cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-8 * np.abs(ref).max()
+
+
+def test_qp_direct_first_factor_f32_has_no_tf32(cuda):
+    """qp_direct's first KKT factor (Θ = I) in float32 on the card, with
+    the TF32 switches on outside it, against the same factor in float64:
+    within 1e-4 of max|pool| (6e-7 on the CPU), where TF32's 10-bit
+    products would leave errors of 1e-4 and more."""
+    from elemental_tpu_torch.optimization.lp import _build_lp_kkt
+    Q, A, _, _ = _qp_case(n1=32)
+    pools = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        perm = None
+        for dt in (torch.float64, torch.float32):
+            kkt, _ = _build_lp_kkt(A, 1e-2, 1e-2, perm, device=cuda,
+                                   dtype=dt, Q=Q)
+            perm = kkt.symb.perm.cpu().numpy()
+            pools[dt] = kkt.prepare(kkt.assemble(
+                [torch.ones(A.width, dtype=dt, device=cuda)])).pool
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    p64 = pools[torch.float64]
+    err = (pools[torch.float32].double() - p64).abs().max()
+    assert float(err) <= 1e-4 * float(p64.abs().max())
+
+
+def test_ipm_on_card_in_float32(cuda):
+    """qp_direct and socp_affine in float32 on the card: finite iterates,
+    the objective within 1e-3 of the float64 answer."""
+    for name in ("qp_direct", "socp_affine"):
+        ref, _ = _engine_runs(name, "cpu")
+        got, xg = _engine_runs(name, cuda, torch.float32)
+        assert np.all(np.isfinite(xg))
+        assert abs(got.objective - ref.objective) <= 1e-3 * (
+            1 + abs(ref.objective))
+
+
+def test_native_library_built_from_port_source(cuda):
+    """On the machine with the card, the ordering library is compiled from
+    the port's own csrc/symbolic.cpp and orders a graph."""
+    import os
+    from elemental_tpu_torch.sparse_direct import native
+    assert native.SOURCE.endswith(os.path.join("elemental_tpu_torch", "csrc",
+                                               "symbolic.cpp"))
+    lib = native._lib()
+    assert os.path.basename(lib._name).startswith("libelemental_native-")
+    perm = native.rcm(np.array([0, 1, 3, 4]), np.array([1, 0, 2, 1]))
+    assert sorted(perm.tolist()) == [0, 1, 2]

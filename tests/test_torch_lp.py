@@ -206,6 +206,11 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch\n"
             "import elemental_tpu_torch.kernels.extend_add\n"
             "import elemental_tpu_torch.optimization.lp\n"
+            "import elemental_tpu_torch.optimization.qp\n"
+            "import elemental_tpu_torch.optimization.socp\n"
+            "import elemental_tpu_torch.optimization.solvers\n"
+            "import elemental_tpu_torch.sparse.io\n"
+            "import elemental_tpu_torch.lapack.sparse_min\n"
             "import elemental_tpu_torch.sparse_direct.facade\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'elemental_tpu.')) for m in sys.modules if sys.modules[m])\n")
