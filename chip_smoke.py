@@ -93,6 +93,24 @@ Phases, each printing at least one line and each fatal when it fails:
     ``sparse_least_squares`` (examples/sequential_least_squares.py's
     extended Laplacian) and ``sparse_lse`` (examples/sequential_lse.py's
     problem) in float64 and float32, held to the drivers' gates.
+18. complex sparse LDL, each pattern ordered by ``natural_nested_dissection``
+    and analysed in a worker beside phase 3 as well: damped Helmholtz
+    ``sparse_helmholtz_2d(384, 384, ω²(1 + 0.05i))``, ω = 2π·385/10
+    (complex-symmetric LDLᵀ, N = 147,456, the LP's KKT size); on its
+    pattern the 384² magnetic Laplacian (Landau gauge, flux 1/64 a
+    plaquette), Hermitian, once HPD through ``spd=True`` and once shifted
+    into the middle of its lowest Landau gap through the LDLᴴ kernels
+    (indefinite), with an estimate of its κ; and
+    ``sparse_helmholtz_3d(32, 32, 32, ω²(1 + 0.05i))``, ω = 2π·33/10.  Each
+    in complex64 and complex128: the factor's seconds, K1 launched through
+    its complex instantiations on every level with children, the first
+    factor taken again with K1 held against the plain extend-add at every
+    level (1e-5 / 1e-12 of max|pool|), solve ms, the refined solve's
+    relative residual (host, complex128) under the dtype's bound, and for
+    the Hermitian ones the solve through the panel inverses (the conjugate
+    backward step) against substitution.  K1 alone on the 384² plan in
+    both complex dtypes against ``index_add_``, as phase 3, and one
+    complex64 factor of each size under ``torch.profiler``.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -230,25 +248,26 @@ def host_us(fn, calls: int, reps: int = 3) -> float:
     return best / calls * 1e6
 
 
-def phase_k1(kkt, seed: int):
-    """K1 against ``index_add_`` on every level of the KKT plan: issued
-    from the host as the factor issues it, and replayed as a CUDA graph
-    (device time)."""
+def phase_k1(plan, seed: int, tols=None, tag: str = "3 K1"):
+    """K1 against ``index_add_`` on every level of an extend-add plan, for
+    each dtype of ``tols`` (dtype: gate as a fraction of max|pool|; float32
+    and float64 by default): issued from the host as the factor issues it,
+    and replayed as a CUDA graph (device time)."""
     import torch
     from elemental_tpu_torch.kernels.extend_add import (extend_add,
                                                         extend_add_plain)
-    plan = kkt.ea_plan
+    tols = tols or {torch.float32: 1e-5, torch.float64: 1e-12}
     levels = [plan.levels[li] for li in sorted(plan.levels)]
     runs = sum(lv.n_runs for lv in levels)
     dests = sum(lv.n_dest for lv in levels)
-    print(f"[3 K1] plan: {len(levels)} levels, {plan.n_pairs} pairs, "
+    print(f"[{tag}] plan: {len(levels)} levels, {plan.n_pairs} pairs, "
           f"{dests} destinations, {runs} runs "
           f"({sum(lv.n_run_pairs for lv in levels)} pairs, "
           f"{sum(lv.n_run_pairs for lv in levels) / max(runs, 1):.1f} a "
           f"run), {sum(lv.n_multi for lv in levels)} destinations with two "
           f"sources or more")
     out = {}
-    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype, rtol in tols.items():
         g = torch.Generator(device="cuda").manual_seed(seed)
         pool0 = torch.rand(plan.pool_size, generator=g, device="cuda",
                            dtype=dtype)
@@ -279,7 +298,7 @@ def phase_k1(kkt, seed: int):
         try:
             g_plain = graph_ms(run_plain)
         except RuntimeError as e:           # not capturable: say so
-            print(f"[3 K1] index_add_ could not be captured: {e}")
+            print(f"[{tag}] index_add_ could not be captured: {e}")
             g_plain = None
         us, plain_us = (host_us(run_kernel, len(levels)),
                         host_us(run_plain, len(levels)))
@@ -293,7 +312,7 @@ def phase_k1(kkt, seed: int):
                           graph_ms=g_ms, graph_plain_ms=g_plain,
                           bound=(b_ms, b_by))
         g_plain_txt = "n/a" if g_plain is None else f"{g_plain:.4f}"
-        line = (f"[3 K1] {str(dtype)[6:]}: max|err| {err:.3e} (max|pool| "
+        line = (f"[{tag}] {str(dtype)[6:]}: max|err| {err:.3e} (max|pool| "
                 f"{scale:.3e}), two runs bit-equal; one factor's "
                 f"extend-add: issued from the host kernel {ms:.4f} ms, "
                 f"index_add_ {plain_ms:.4f} ms; as a CUDA graph kernel "
@@ -1376,8 +1395,9 @@ def lse_instance(g: int, seed: int, p: int = 5):
 
 def ordering_job(kind: str, arg, seed: int):
     """Host analysis of one at-scale pattern, run in a worker process: the
-    fill ordering (nested dissection), the symbolic analysis and the
-    extend-add plan.  ``arg`` is --n1, or the MPS file's path for "mps".
+    fill ordering (nested dissection; the grid's natural nested dissection
+    for "complex"), the symbolic analysis and the extend-add plan.  ``arg``
+    is --n1, the MPS file's path for "mps", "2d" or "3d" for "complex".
     Returns a dict: the ordering (``perm``), N, nnz, the levels with an
     extend-add and the seconds taken."""
     import torch
@@ -1389,6 +1409,7 @@ def ordering_job(kind: str, arg, seed: int):
     from elemental_tpu_torch.optimization.socp import Cones, _build_socp_kkt
     from elemental_tpu_torch.sparse import read_mps
     from elemental_tpu_torch.sparse_direct import (analyze, build_ea_plan,
+                                                   natural_nested_dissection,
                                                    nested_dissection)
     torch.set_num_threads(1)
     cpu = dict(device="cpu", dtype=torch.float32)
@@ -1396,7 +1417,7 @@ def ordering_job(kind: str, arg, seed: int):
     if kind == "mps":
         A = mps_to_standard(read_mps(arg))[0]
         kkt, _ = _build_lp_kkt(sparse_ruiz(A)[0], 1e-2, 1e-2, None, **cpu)
-    g = None if kind == "mps" else grids(arg)
+    g = None if kind in ("mps", "complex") else grids(arg)
     if kind == "qp":
         Q, A, _, _ = qp_instance(g["qp"], seed)
         kkt, _ = _build_lp_kkt(A, 1e-2, 1e-2, None, Q=Q, **cpu)
@@ -1411,6 +1432,13 @@ def ordering_job(kind: str, arg, seed: int):
         return dict(perm=kkt.symb.perm.numpy(), N=kkt.N, nnz=kkt.nnz,
                     levels=len(kkt.ea_plan.levels),
                     seconds=time.perf_counter() - t0)
+    if kind == "complex":
+        K, dims = complex_pattern(arg)
+        host = analyze(K, perm=natural_nested_dissection(dims))
+        return dict(perm=host.perm, N=K.height, nnz=K.nnz,
+                    levels=len(build_ea_plan(host).levels),
+                    seconds=time.perf_counter() - t0, pool=host.pool_size,
+                    front=max(lev.front_size for lev in host.levels))
     if kind == "ls":
         K = _ls_system(extended_laplacian(g["ls"], g["ls"]), 1.0)
         perm = nested_dissection(K, cutoff=64)
@@ -1440,11 +1468,11 @@ def dense_last_ordering(K):
 
 def start_ipm_analyses(n1: int, seed: int, tmp: str):
     """Write phase 16's MPS file into ``tmp`` and start the host analysis
-    of the six at-scale patterns of phases 14-17 (``ordering_job``), one
-    spawned process each, so no CUDA state is shared, while the caller goes
-    on.  Returns (the MPS file's path, what read_mps must give back,
-    ``wait``); ``wait()`` returns the analyses by name once every process
-    has ended."""
+    of the six at-scale patterns of phases 14-17 and the two of phase 18
+    (``ordering_job``), one spawned process each, so no CUDA state is
+    shared, while the caller goes on.  Returns (the MPS file's path, what
+    read_mps must give back, ``wait``); ``wait()`` returns the analyses by
+    name once every process has ended."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -1455,7 +1483,8 @@ def start_ipm_analyses(n1: int, seed: int, tmp: str):
         f.write(text)
     jobs = [("qp", "qp", n1), ("lp_affine", "lp_affine", n1),
             ("socp", "socp", n1), ("mps", "mps", path), ("ls", "ls", n1),
-            ("lse", "lse", n1)]
+            ("lse", "lse", n1), ("c2d", "complex", "2d"),
+            ("c3d", "complex", "3d")]
     t0 = time.perf_counter()
     pool = ProcessPoolExecutor(len(jobs), mp_context=multiprocessing
                                .get_context("spawn"))
@@ -1469,7 +1498,7 @@ def start_ipm_analyses(n1: int, seed: int, tmp: str):
         finally:
             pool.shutdown(cancel_futures=True)
         t_end = time.perf_counter()
-        print(f"[14-17] host analysis of {len(jobs)} patterns, one process "
+        print(f"[14-18] host analysis of {len(jobs)} patterns, one process "
               f"each, beside the LP's: {t_end - t0:.1f} s from their start, "
               f"{t_end - t_wait:.1f} s of it waited for; " + "; ".join(
                   f"{name} N={o['N']} nnz={o['nnz']}, {o['levels']} levels "
@@ -1515,7 +1544,7 @@ def k1_against_plain(args) -> str:
                                                         extend_add_plain)
     from elemental_tpu_torch.sparse_direct import numeric
     check(args is not None, "no factor was taken")
-    rtol = 1e-5 if args[3] == torch.float32 else 1e-12
+    rtol = 1e-5 if args[3] in (torch.float32, torch.complex64) else 1e-12
     counted = extend_add.launches
     worst = dict(ratio=0.0, err=0.0, scale=0.0, levels=0)
 
@@ -1987,6 +2016,234 @@ def phases_ipm_tier(n1: int, seed: int, max_iters: int, orders: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: complex sparse LDL (LDLᵀ complex-symmetric, LDLᴴ Hermitian)
+# ---------------------------------------------------------------------------
+
+# grid sides: 384² = 147,456 unknowns (the LP's KKT size), and 32³
+C2D, C3D = 384, 32
+
+
+def helmholtz_shift(n: int) -> complex:
+    """ω²(1 + 0.05i), ω = 2π(n+1)/10: ten grid points a wavelength at
+    h = 1/(n+1), damped by 5 % (the reference's Helmholtz.cpp scenario)."""
+    omega = 2 * 3.141592653589793 * (n + 1) / 10
+    return omega ** 2 * (1 + 0.05j)
+
+
+def complex_pattern(kind: str):
+    """(damped Helmholtz matrix, grid dims) of phase 18's "2d" or "3d"."""
+    from elemental_tpu_torch.matrices import (sparse_helmholtz_2d,
+                                              sparse_helmholtz_3d)
+    if kind == "2d":
+        return sparse_helmholtz_2d(C2D, C2D, helmholtz_shift(C2D)), (C2D,
+                                                                     C2D)
+    return (sparse_helmholtz_3d(C3D, C3D, C3D, helmholtz_shift(C3D)),
+            (C3D,) * 3)
+
+
+def magnetic_laplacian(n: int, sigma: float, flux: float = 1 / 64):
+    """The port's scaled n×n Laplacian in the Landau gauge: the edges along
+    axis 0 carry e^{±2πi·flux·j} (j the index along axis 1), minus the real
+    ``sigma`` on the diagonal.  Hermitian, with the Helmholtz matrix's
+    pattern; positive definite at sigma = 0."""
+    import numpy as np
+    from elemental_tpu_torch.matrices import sparse_laplacian_2d
+    L = sparse_laplacian_2d(n, n)
+    r, c = L.row_ids(), L.colind
+    phase = np.exp(2j * np.pi * flux * (r % n))
+    v = L.vals.astype(np.complex128)
+    v = np.where(c - r == n, v * phase, v)
+    v = np.where(r - c == n, v * phase.conj(), v)
+    return L.change_nonzero_values(np.where(r == c, v - sigma, v))
+
+
+def landau_gap_shift(n: int, flux: float = 1 / 64) -> float:
+    """4π·flux·(n+1)²: the middle of the gap between the two lowest Landau
+    levels of ``magnetic_laplacian(n, 0)`` (lattice energies near 2π·flux
+    and 6π·flux, scaled by h⁻² = (n+1)²).  At σ = ω² instead, the
+    unpivoted LDLᴴ loses most of its accuracy and complex64's iterative
+    refinement diverges (``tools/hermitian_probe.py``; PERF.md)."""
+    return 4 * 3.141592653589793 * flux * (n + 1) ** 2
+
+
+def same_analysis(base, M, *, dtype, hermitian: bool, spd: bool):
+    """A facade on M, which has ``base``'s pattern, sharing base's ordering,
+    symbolic analysis and extend-add plan (they do not depend on the values,
+    the dtype or ``hermitian``), as ``change_nonzero_values`` shares them."""
+    import copy
+    f = copy.copy(base)
+    f.dtype, f.hermitian, f.spd = dtype, hermitian, spd
+    f.numeric = None
+    return f.change_nonzero_values(M.vals)
+
+
+def kappa_estimate(f, iters: int = 8) -> float:
+    """‖M‖₂·‖M⁻¹‖₂ of the factored matrix by ``iters`` power iterations
+    each (M through its device CSR, M⁻¹ through the factor's solve): a
+    lower bound, close for a Hermitian M."""
+    import numpy as np
+    import torch
+    dev = f.A.device_csr(device=f.device, dtype=f.dtype)
+    rng = np.random.default_rng(1)
+
+    def norm(apply):
+        v = torch.as_tensor(rng.standard_normal(f.A.height)).to(f.device,
+                                                                 f.dtype)
+        for _ in range(iters):
+            w = apply(v / torch.linalg.vector_norm(v))
+            v = w
+        return float(torch.linalg.vector_norm(w))
+
+    return norm(dev.matvec) * norm(f.solve)
+
+
+def profile_factor(f) -> str:
+    """One factor under ``torch.profiler``: its host time and the device
+    busy share (kernel time over that span), from the raw events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        f.factor()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    kernels = [e.duration_ns() / 1e9 for e in
+               prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    f.numeric = None
+    return (f"one {str(f.dtype)[6:]} factor under torch.profiler: {span:.3f} "
+            f"s on the host's clock, device busy {sum(kernels) / span:.3f} "
+            f"({len(kernels)} kernels and copies, {sum(kernels):.3f} s)")
+
+
+def complex_factor(tag: str, label: str, f, levels: int, seed: int,
+                   ctx: bool = False, kappa: bool = False) -> int:
+    """18: one matrix in one dtype through the facade (its analysis done):
+    the factor timed with K1 counted (at least one launch a level with
+    children), a solve, the refined solve's relative residual on the host
+    in complex128 under the dtype's bound; with ``ctx`` the solve through
+    the panel inverses against substitution; with ``kappa`` an estimate of
+    κ; then the first factor taken again with K1 held against the plain
+    extend-add (``k1_against_plain``).  Returns the factor's K1 launches."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    dt = str(f.dtype)[6:]
+    extend_add.launches = 0
+    with FirstFactor() as first:
+        _, t_factor = wall(f.factor)
+    launches = extend_add.launches
+    check(launches >= levels > 0, f"{label} {dt}: K1 launched {launches} "
+          f"times on {levels} levels with children")
+    n = f.A.height
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    S = f.A.to_scipy()
+
+    def resid(x):
+        x = x.cpu().numpy().astype(np.complex128)
+        return float(np.linalg.norm(S @ x - b) / np.linalg.norm(b))
+
+    f.solve(b)                                          # warm
+    x, t_solve = wall(lambda: f.solve(b))
+    xr, t_ref = wall(lambda: f.solve_with_iterative_refinement(b))
+    r0, r = resid(x), resid(xr)
+    bound = f.residual_bound()
+    check(np.isfinite(r) and r < bound, f"{label} {dt}: refined residual "
+          f"{r:.3e} >= bound {bound:.3e}")
+    line = (f"[{tag}] {label} {dt}: factor {t_factor:.3f} s, K1 launches "
+            f"{launches} ({levels} levels with children); solve "
+            f"{t_solve * 1e3:.1f} ms, residual {r0:.3e}; refined (6 steps) "
+            f"{t_ref * 1e3:.1f} ms, residual {r:.3e} < {bound:.3e}")
+    if ctx:
+        num = f.numeric
+        panels, t_ctx = wall(num.solve_context)
+        xc, t_csolve = wall(lambda: num.solve(b, panels))
+        del panels
+        rc = resid(xc)
+        diff = float(torch.linalg.vector_norm(xc - x)
+                     / torch.linalg.vector_norm(x))
+        check(np.isfinite(rc) and rc < bound and (
+            f.dtype != torch.complex128 or diff <= 1e-6),
+            f"{label} {dt}: solve through the panel inverses: residual "
+            f"{rc:.3e} (bound {bound:.3e}), {diff:.3e} from substitution")
+        line += (f"; through the panel inverses ({t_ctx:.3f} s to build) "
+                 f"{t_csolve * 1e3:.1f} ms, residual {rc:.3e}, "
+                 f"{diff:.3e} from substitution")
+    if kappa:
+        line += f"; κ ≥ {kappa_estimate(f):.3e} (8 power iterations each)"
+    f.numeric = None
+    torch.cuda.empty_cache()
+    line += "; " + k1_against_plain(first.args)
+    print(line)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_complex(seed: int, orders) -> tuple:
+    """18: complex sparse LDL on the card (see the module docstring).
+    Returns (K1 launches by dtype, K1 alone on the 384² plan by dtype)."""
+    import torch
+    from elemental_tpu_torch.sparse_direct import SparseLDLFactorization
+    c64, c128 = torch.complex64, torch.complex128
+    launches = {c64: 0, c128: 0}
+    tag = "18 complex LDL"
+    A, _ = complex_pattern("2d")
+    shift = helmholtz_shift(C2D)
+    o2 = orders["c2d"]
+    base = SparseLDLFactorization(device="cuda", dtype=c64)
+    _, t_init = wall(lambda: base.initialize(A, perm=o2["perm"]))
+    print(f"[{tag}] 2-D: damped Helmholtz {C2D}², shift ω²(1 + 0.05i) = "
+          f"{shift:.6g}, N={A.height}, natural nested dissection: "
+          f"{base.symb.num_levels} levels, {o2['levels']} with an "
+          f"extend-add, largest front {o2['front']}, pool {o2['pool']} "
+          f"entries ({o2['pool'] * 16 / 1e9:.2f} GB in complex128); "
+          f"initialize {t_init:.2f} s (the worker's analysis "
+          f"{o2['seconds']:.1f} s)")
+    k1 = phase_k1(base.ea_plan, seed, {c64: 1e-5, c128: 1e-12},
+                  tag=f"{tag} K1")
+    cases = (("A (Helmholtz, LDLᵀ)", A, False, False, False),
+             ("H(a) (magnetic, σ = 0, HPD)", magnetic_laplacian(C2D, 0.0),
+              True, True, False),
+             (f"H(b) (magnetic, σ = {landau_gap_shift(C2D):.6g} in the "
+              f"lowest Landau gap, LDLᴴ)",
+              magnetic_laplacian(C2D, landau_gap_shift(C2D)), True, False,
+              True))
+    for label, M, herm, spd, kappa in cases:
+        for dtype in (c64, c128):
+            f = same_analysis(base, M, dtype=dtype, hermitian=herm, spd=spd)
+            launches[dtype] += complex_factor(
+                tag, label, f, o2["levels"], seed, ctx=herm,
+                kappa=kappa and dtype == c128)
+    print(f"[{tag}] A: " + profile_factor(base))
+    del base, cases
+    torch.cuda.empty_cache()
+
+    A3, _ = complex_pattern("3d")
+    o3 = orders["c3d"]
+    base = SparseLDLFactorization(device="cuda", dtype=c64)
+    _, t_init = wall(lambda: base.initialize(A3, perm=o3["perm"]))
+    print(f"[{tag}] 3-D: damped Helmholtz {C3D}³, shift "
+          f"{helmholtz_shift(C3D):.6g}, N={A3.height}: "
+          f"{base.symb.num_levels} levels, {o3['levels']} with an "
+          f"extend-add, largest front {o3['front']}, pool {o3['pool']} "
+          f"entries ({o3['pool'] * 16 / 1e9:.2f} GB in complex128); "
+          f"initialize {t_init:.2f} s (the worker's analysis "
+          f"{o3['seconds']:.1f} s)")
+    for dtype in (c64, c128):
+        f = same_analysis(base, A3, dtype=dtype, hermitian=False, spd=False)
+        launches[dtype] += complex_factor(tag, "A3 (Helmholtz 3-D, LDLᵀ)", f,
+                                          o3["levels"], seed)
+    print(f"[{tag}] A3: " + profile_factor(base))
+    del base
+    torch.cuda.empty_cache()
+    return launches, k1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -2010,7 +2267,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-17 and the JSON lines; phase 16's file goes into ``tmp``;
+    """Phases 3-18 and the JSON lines; phase 16's file goes into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -2037,7 +2294,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
           f"{kkt.symb.num_levels} levels, pool {kkt.symb.pool_size}): "
           f"{t_host:.2f} s, beside phases 14-17's")
     orders = wait_analyses()
-    k1 = phase_k1(kkt, args.seed)
+    k1 = phase_k1(kkt.ea_plan, args.seed)
     phase_ldl()
     launches = phase_lp(A, b, c, kkt, args.max_iters)
     del kkt
@@ -2070,7 +2327,12 @@ def run_phases(args, tmp: str, t_start: float) -> int:
           f"phases took {time.perf_counter() - t0:.1f} s (host analysis "
           f"included)")
 
-    print(f"[1-17] every phase, the kernels' build included, took "
+    t0 = time.perf_counter()
+    c_launches, k1c = phase_complex(args.seed, orders)
+    print(f"[18 complex LDL] the phase took {time.perf_counter() - t0:.1f} s "
+          f"(its two symbolic analyses included)")
+
+    print(f"[1-18] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",
@@ -2095,6 +2357,12 @@ def run_phases(args, tmp: str, t_start: float) -> int:
                    launches, r32, library_ms=r32["plain_ms"]),
              graph_ms=r32["graph_ms"],
              graph_plain_ms=r32["graph_plain_ms"]),
+        *(dict(entry(f"extend_add_{str(dt)[6:]}", "extend_add.cu",
+                     "extend_add.py:58", c_launches[dt], k1c[dt],
+                     library_ms=k1c[dt]["plain_ms"]),
+               graph_ms=k1c[dt]["graph_ms"],
+               graph_plain_ms=k1c[dt]["graph_plain_ms"])
+          for dt in (torch.complex64, torch.complex128)),
         entry("stencil_spmv", "stencil_spmv.cu", "spmv.py:123", k3_launches,
               k3, library_ms=k3["lib_ms"]),
         entry("gather_spmv", "csr_spmv.cu", "unstructured.py:179",

@@ -8,6 +8,11 @@ Ported so far, each slice with its TPU kernels written by hand for Hopper:
   ``optimization/solvers.py`` and the sparse least squares of
   ``lapack/sparse_min.py``, all factoring through the multifrontal
   extend-add K1 (``kernels/extend_add.py``, ``csrc/extend_add.cu``);
+* the complex sparse-direct solves: ``sparse_direct.SparseLDLFactorization``
+  on complex-symmetric (LDLᵀ) and Hermitian (LDLᴴ, or HPD Cholesky) input
+  in complex64 and complex128, K1 on complex pools, with the grid ordering
+  ``natural_nested_dissection``, the BSR containers and the Helmholtz,
+  PML and dense PDE generators of ``matrices``;
 * the SpMV planner (``sparse.plan_spmv``: DIA, RCM reordering, CSR) and the
   Krylov solvers that drive it (``lapack.cg``, ``gmres``, ``fgmres``,
   ``lgmres``, ``refined_solve``), with the stencil SpMV K3

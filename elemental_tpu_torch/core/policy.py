@@ -12,10 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["effective_dtype", "index_dtype", "residual_bound",
-           "working_dtype"]
+__all__ = ["effective_dtype", "index_dtype", "real_working_dtype",
+           "residual_bound", "working_dtype"]
 
-_REAL = (torch.float32, torch.float64)
+_WORKING = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 def effective_dtype(requested) -> torch.dtype:
@@ -32,16 +32,20 @@ def effective_dtype(requested) -> torch.dtype:
 
 def working_dtype(requested) -> torch.dtype:
     """The factorization's working dtype, given explicitly by the caller:
-    float32 or float64.  Complex factorizations are not ported yet
-    (ROADMAP.md, queue 1)."""
+    float32, float64, complex64 or complex128."""
     dt = effective_dtype(requested)
+    if dt not in _WORKING:
+        raise TypeError(f"working dtype must be float32, float64, "
+                        f"complex64 or complex128, got {dt}")
+    return dt
+
+
+def real_working_dtype(requested) -> torch.dtype:
+    """:func:`working_dtype` for the real engines (the interior-point
+    methods and the sparse least squares): float32 or float64."""
+    dt = working_dtype(requested)
     if dt.is_complex:
-        raise NotImplementedError(
-            "complex sparse factorizations are not ported to "
-            "elemental_tpu_torch yet; see ROADMAP.md (queue 1)")
-    if dt not in _REAL:
-        raise TypeError(f"working dtype must be float32 or float64, "
-                        f"got {dt}")
+        raise TypeError(f"this solver works in float32 or float64, got {dt}")
     return dt
 
 

@@ -44,6 +44,14 @@
 //     any sum, so 16 reads are in flight (the plan guarantees that no
 //     source is a destination of the level).
 // No atomics, and every sum has a fixed order: the same bits on every run.
+//
+// Complex pools (complex64, complex128) run the same kernel on a value type
+// of two reals with a componentwise +, aligned as the pool's elements (8 or
+// 16 bytes), so each value moves in one load and one store and the plan's
+// indices stay in elements.  A view of the pool as reals with doubled
+// indices would compute the same sums but double the plan or its index
+// arithmetic; the value type keeps one plan for every dtype.  The bound
+// doubles with the itemsize: complex64 moves float64's bytes.
 // The TPU kernel's 128-lane windows, rounds and spill existed because the
 // TPU has no fast element gather or scatter; none of that carries over.
 //
@@ -57,6 +65,24 @@
 #include <cstdint>
 
 namespace {
+
+// a complex value: two reals, added componentwise; T(0) is 0 + 0i
+template <typename R>
+struct alignas(2 * sizeof(R)) Complex {
+  R re, im;
+  Complex() = default;
+  __device__ explicit Complex(int zero) : re(R(zero)), im(R(zero)) {}
+  __device__ Complex& operator+=(const Complex& o) {
+    re += o.re;
+    im += o.im;
+    return *this;
+  }
+  __device__ Complex operator+(const Complex& o) const {
+    Complex r = *this;
+    r += o;
+    return r;
+  }
+};
 
 constexpr int THREADS = 256;
 constexpr int RUN_BLOCK = 2048;             // run pairs a block
@@ -197,6 +223,10 @@ EL_EA(el_extend_add_f32_i32, float, int32_t)
 EL_EA(el_extend_add_f32_i64, float, int64_t)
 EL_EA(el_extend_add_f64_i32, double, int32_t)
 EL_EA(el_extend_add_f64_i64, double, int64_t)
+EL_EA(el_extend_add_c64_i32, Complex<float>, int32_t)
+EL_EA(el_extend_add_c64_i64, Complex<float>, int64_t)
+EL_EA(el_extend_add_c128_i32, Complex<double>, int32_t)
+EL_EA(el_extend_add_c128_i64, Complex<double>, int64_t)
 
 #undef EL_EA
 

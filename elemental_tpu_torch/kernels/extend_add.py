@@ -4,7 +4,9 @@
 Replaces the TPU kernel ``elemental_tpu/kernels/extend_add.py:ea_route_add``.
 The kernel is built with ``nvcc`` for sm_90a at first use (``_build.py``) and
 loaded with ctypes; it launches on the current CUDA stream and allocates
-nothing.
+nothing.  It takes float32, float64, complex64 and complex128 pools with
+int32 or int64 plans (one plan serves every dtype: its indices count
+elements).
 
 :func:`extend_add` takes the plain version only for a pool on the CPU.  For
 a CUDA pool it launches the kernel or raises: nothing falls back.
@@ -29,6 +31,10 @@ _FN_NAMES = {
     (torch.float32, torch.int64): "el_extend_add_f32_i64",
     (torch.float64, torch.int32): "el_extend_add_f64_i32",
     (torch.float64, torch.int64): "el_extend_add_f64_i64",
+    (torch.complex64, torch.int32): "el_extend_add_c64_i32",
+    (torch.complex64, torch.int64): "el_extend_add_c64_i64",
+    (torch.complex128, torch.int32): "el_extend_add_c128_i32",
+    (torch.complex128, torch.int64): "el_extend_add_c128_i64",
 }
 
 

@@ -47,9 +47,9 @@ def _gmres_cycle(apply_a: Callable, precond: Callable, b, x0, m: int):
     Gram-Schmidt Arnoldi, fixed m (a breakdown leaves zero columns).
 
     The small least-squares problem min ‖βe₁ − H·y‖ is solved on the host
-    in float64 by NumPy's SVD-based ``lstsq`` (rank-revealing, so a happy
-    breakdown, where H loses rank, gives the minimum-norm solution, as the
-    reference's ``jnp.linalg.lstsq`` does)."""
+    in float64 (complex128 for a complex H) by NumPy's SVD-based ``lstsq``
+    (rank-revealing, so a happy breakdown, where H loses rank, gives the
+    minimum-norm solution, as the reference's ``jnp.linalg.lstsq`` does)."""
     n = b.shape[0]
     r0 = b - apply_a(x0)
     beta = torch.linalg.vector_norm(r0)
@@ -70,10 +70,10 @@ def _gmres_cycle(apply_a: Callable, precond: Callable, b, x0, m: int):
         H[j + 1, j] = hnorm
         V[j + 1] = w / _nonzero(hnorm)
         Z[j] = z
-    e1 = np.zeros(m + 1)
+    host = np.complex128 if H.is_complex() else np.float64
+    e1 = np.zeros(m + 1, host)
     e1[0] = float(beta)
-    y, *_ = np.linalg.lstsq(H.cpu().numpy().astype(np.float64), e1,
-                            rcond=None)
+    y, *_ = np.linalg.lstsq(H.cpu().numpy().astype(host), e1, rcond=None)
     x = x0 + Z.T @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
     return x, torch.linalg.vector_norm(b - apply_a(x))
 

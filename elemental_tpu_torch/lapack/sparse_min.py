@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.policy import working_dtype
+from ..core.policy import real_working_dtype
 from ..sparse.csr import SparseMatrix
 from ..sparse_direct import SparseLDLFactorization
 
@@ -103,7 +103,7 @@ def sparse_least_squares(A: SparseMatrix, b, delta: Optional[float] = None,
     α ≈ √eps·‖A‖ diverged ×3/iteration on the ExtendedLaplacian driver in
     the JAX package: the 1e5-scaled residual variable mixes magnitudes the
     refinement cannot survive.)"""
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     m, n = A.shape
     if delta is None:
         delta = _default_delta(
@@ -144,7 +144,7 @@ def sparse_lse(A: SparseMatrix, B: SparseMatrix, c, d,
     = [c; d; 0] with refinement against the δ-free KKT; the (1,1) block
     stays UNIT so the multiplier λ is O(1) and refinement contracts at
     O(δ·κ).  Returns (x, ‖Ax−c‖) on ``device``."""
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     m, n = A.shape
     p = B.shape[0]
     if delta is None:

@@ -1,13 +1,18 @@
-"""Sparse PDE operators (counterpart of the sparse overloads of
-``elemental_tpu/matrices/pde.py``, plus ``concat_fd_2d`` from
-``examples/lp_direct_large.py``).  Host NumPy, returning
-:class:`~..sparse.csr.SparseMatrix`."""
+"""PDE operators (counterpart of ``elemental_tpu/matrices/pde.py``, plus
+``concat_fd_2d`` from ``examples/lp_direct_large.py``).  The sparse
+overloads are host NumPy, returning :class:`~..sparse.csr.SparseMatrix`;
+the dense overloads return tensors on a keyword-only ``device``.
+
+Convention as in the reference: the negative Laplacian on a uniform grid
+over (0,1)^d with Dirichlet boundaries, scaled by 1/h²; Helmholtz subtracts
+the shift ω², which may be complex (a damped wave number)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..sparse.csr import SparseMatrix
 
@@ -65,6 +70,85 @@ def sparse_helmholtz_2d(n1: int, n2: int, shift: float) -> SparseMatrix:
 def sparse_helmholtz_3d(n1: int, n2: int, n3: int,
                         shift: float) -> SparseMatrix:
     return _laplacian_sparse((n1, n2, n3), shift=shift)
+
+
+# ---- dense overloads ----
+
+def _dense(A: SparseMatrix, device) -> torch.Tensor:
+    return torch.as_tensor(A.to_dense()).to(device)
+
+
+def laplacian_1d(n1: int, scaled: bool = True, *, device) -> torch.Tensor:
+    return _dense(sparse_laplacian_1d(n1, scaled), device)
+
+
+def laplacian_2d(n1: int, n2: int, scaled: bool = True, *,
+                 device) -> torch.Tensor:
+    return _dense(sparse_laplacian_2d(n1, n2, scaled), device)
+
+
+def laplacian_3d(n1: int, n2: int, n3: int, scaled: bool = True, *,
+                 device) -> torch.Tensor:
+    return _dense(sparse_laplacian_3d(n1, n2, n3, scaled), device)
+
+
+def helmholtz_1d(n1: int, shift, *, device) -> torch.Tensor:
+    return _dense(_laplacian_sparse((n1,), shift), device)
+
+
+def helmholtz_2d(n1: int, n2: int, shift, *, device) -> torch.Tensor:
+    return _dense(sparse_helmholtz_2d(n1, n2, shift), device)
+
+
+def helmholtz_3d(n1: int, n2: int, n3: int, shift, *,
+                 device) -> torch.Tensor:
+    return _dense(sparse_helmholtz_3d(n1, n2, n3, shift), device)
+
+
+def helmholtz_pml_2d(n1: int, n2: int, omega: float, pml_width: int = 5,
+                     sigma: float = 1.5) -> SparseMatrix:
+    """2-D Helmholtz with a simple PML absorbing layer (reference
+    ``HelmholtzPML``): each axis' second difference divided by that axis'
+    complex stretch s = 1 + iσ·depth² at the row's grid point, minus ω².
+
+    Entry for entry the JAX package's matrix.  The stencil scales a row by
+    its own point's stretch, so inside the band A ≠ Aᵀ (max|A − Aᵀ| = 21.6
+    at 8×8, ω = 20): an LDLᵀ, which reads the permuted lower triangle, does
+    not solve it."""
+    nx, ny = n1, n2
+    n = nx * ny
+    h = 1.0 / (nx + 1)
+
+    def stretch(i, m):
+        d_lo = np.maximum(0, pml_width - i)
+        d_hi = np.maximum(0, i - (m - 1 - pml_width))
+        depth = np.maximum(d_lo, d_hi) / max(pml_width, 1)
+        return 1.0 + 1j * sigma * depth ** 2
+
+    sx = stretch(np.arange(nx), nx)
+    sy = stretch(np.arange(ny), ny)
+    i, j = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny),
+                                            indexing="ij"))
+    r = i * ny + j
+    rows, cols, vals = [], [], []
+    # the reference's loop order per axis: every point's diagonal, then its
+    # lower and its upper neighbour (from_coo sums duplicates in this order)
+    for s, k, m, step in ((sx, i, nx, ny), (sy, j, ny, 1)):
+        coef = 1.0 / (s[k] * h * h)
+        lo, hi = k > 0, k < m - 1
+        part_r = np.stack([r, r, r], 1)
+        part_c = np.stack([r, r - step, r + step], 1)
+        part_v = np.stack([2.0 * coef, -coef, -coef], 1)
+        keep = np.stack([np.ones_like(lo), lo, hi], 1)
+        rows.append(part_r[keep])
+        cols.append(part_c[keep])
+        vals.append(part_v[keep])
+    rows.append(np.arange(n))
+    cols.append(np.arange(n))
+    vals.append(np.full(n, -omega ** 2, np.complex128))
+    return SparseMatrix.from_coo(n, n, np.concatenate(rows),
+                                 np.concatenate(cols),
+                                 np.concatenate(vals).astype(np.complex128))
 
 
 def concat_fd_2d(n0: int, n1: int) -> SparseMatrix:

@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.policy import working_dtype
+from ..core.policy import real_working_dtype
 from ..sparse.csr import SparseMatrix
 from ..sparse_direct.ea_plan import EAPlan, build_ea_plan
 from ..sparse_direct.numeric import LDLFactorization, factor as _mf_factor
@@ -62,7 +62,7 @@ class KKTBuilder:
                  cutoff: int = 64, *, device, dtype) -> "KKTSystem":
         """Host ordering + symbolic analysis + extend-add plan; the plans and
         values move to ``device`` (values in ``dtype``)."""
-        dtype = working_dtype(dtype)
+        dtype = real_working_dtype(dtype)
         N = self.N
         srows = (np.concatenate(self._srows) if self._srows
                  else np.empty(0, np.int64))

@@ -30,7 +30,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.policy import working_dtype
+from ..core.policy import real_working_dtype
 from ..extended import dd_add, dd_dot, dd_neg, two_prod, two_sum
 from ..sparse.csr import SparseMatrix
 from ..sparse.io import MPSData
@@ -219,7 +219,7 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     """Solve min cᵀx s.t. Ax = b, x ≥ 0 (reference ``LPDirect``) on
     ``device`` in ``dtype`` (float32 or float64)."""
     ctrl = ctrl or LPCtrl()
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     device = torch.device(device)
     m, n = A.shape
     A, r, s = sparse_ruiz(A)
@@ -400,7 +400,7 @@ def lp_affine(A: SparseMatrix, b: np.ndarray, G: SparseMatrix,
     W = s/z the dynamic slot, factored by the multifrontal LDL every
     iteration (symbolic reused)."""
     ctrl = ctrl or LPCtrl()
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     device = torch.device(device)
     A, G = _as_sparse(A), _as_sparse(G)
     m, n = A.shape

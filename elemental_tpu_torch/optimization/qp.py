@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.policy import working_dtype
+from ..core.policy import real_working_dtype
 from ..sparse.csr import SparseMatrix
 from .lp import (LPCtrl, LPResult, _as_sparse, _build_affine_kkt,
                  _build_lp_kkt, _host_scalars, _resolve_numerics,
@@ -35,7 +35,7 @@ def qp_direct(Q, A, b: np.ndarray, c: np.ndarray,
     """min ½xᵀQx + cᵀx s.t. Ax = b, x ≥ 0 (reference ``QPDirect``) on
     ``device`` in ``dtype``."""
     ctrl = ctrl or LPCtrl()
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     device = torch.device(device)
     Q, A = _as_sparse(Q), _as_sparse(A)
     m, n = A.shape
@@ -141,7 +141,7 @@ def qp_affine(Q, A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
     ``QPAffine``, spec from ``examples/interface/QPAffine.py``) on
     ``device`` in ``dtype``, W = s/z the dynamic slot of the affine KKT."""
     ctrl = ctrl or LPCtrl()
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     device = torch.device(device)
     Q, A, G = _as_sparse(Q), _as_sparse(A), _as_sparse(G)
     m, n = A.shape

@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.policy import working_dtype
+from ..core.policy import real_working_dtype
 from ..sparse.csr import SparseMatrix
 from .lp import (LPCtrl, _as_sparse, _build_affine_kkt, _host_scalars,
                  _resolve_numerics, _resolve_refine)
@@ -343,7 +343,7 @@ def socp_affine(A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
     """min cᵀx s.t. Ax = b, Gx + s = h, s ∈ K (reference ``SOCPAffine``) on
     ``device`` in ``dtype``."""
     ctrl = ctrl or LPCtrl()
-    dtype = working_dtype(dtype)
+    dtype = real_working_dtype(dtype)
     device = torch.device(device)
     A, G = _as_sparse(A), _as_sparse(G)
     m, n = A.shape

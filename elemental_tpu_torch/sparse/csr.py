@@ -1,12 +1,13 @@
 """Sparse containers: ``SparseMatrix`` (host CSR), ``Graph`` (pattern),
 ``SparseBuilder`` (COO assembly) and the device forms ``CSRDevice`` and
-``ELLMatrix`` (counterpart of ``elemental_tpu/sparse/csr.py``; BSR is not
-ported yet).
+``ELLMatrix``, and the block form ``BSRMatrix``/``BSRDevice`` (counterpart
+of ``elemental_tpu/sparse/csr.py``).
 
 Assembly and structure live on the host in NumPy, as in the JAX package;
 the device forms hold tensors.  ``CSRDevice.matvec`` is ``index_select`` +
 ``index_add_``, as the JAX package computed it with an XLA gather and
-``segment_sum``.
+``segment_sum``; ``BSRDevice.matvec`` is a gather of x's blocks and one
+batched block product.  Values may be real or complex.
 """
 
 from __future__ import annotations
@@ -109,6 +110,10 @@ class SparseMatrix:
     def shape(self) -> Tuple[int, int]:
         return (self.height, self.width)
 
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.rowptr)
 
@@ -136,6 +141,9 @@ class SparseMatrix:
                                      self.row_ids(), self.vals,
                                      sum_duplicates=False)
 
+    def conj(self) -> "SparseMatrix":
+        return dataclasses.replace(self, vals=np.conj(self.vals))
+
     def change_nonzero_values(self, new_vals) -> "SparseMatrix":
         """Same structure, new values (reference ``ChangeNonzeroValues``)."""
         new_vals = np.asarray(new_vals)
@@ -143,6 +151,36 @@ class SparseMatrix:
             raise ValueError(f"expected {self.vals.shape} values, got "
                              f"{new_vals.shape}")
         return dataclasses.replace(self, vals=new_vals)
+
+    def scale(self, alpha) -> "SparseMatrix":
+        return dataclasses.replace(self, vals=self.vals * alpha)
+
+    def symmetric_scale(self, d) -> "SparseMatrix":
+        """diag(d)·A·diag(d), on the stored entries."""
+        d = np.asarray(d)
+        return dataclasses.replace(
+            self, vals=self.vals * d[self.row_ids()] * d[self.colind])
+
+    def add(self, other: "SparseMatrix", alpha=1.0) -> "SparseMatrix":
+        """A + alpha·other, entries at the same place summed."""
+        return SparseMatrix.from_coo(
+            self.height, self.width,
+            np.concatenate([self.row_ids(), other.row_ids()]),
+            np.concatenate([self.colind, other.colind]),
+            np.concatenate([self.vals, alpha * other.vals]))
+
+    def diagonal(self) -> np.ndarray:
+        d = np.zeros(min(self.shape), self.vals.dtype)
+        rows = self.row_ids()
+        on = rows == self.colind
+        d[rows[on]] = self.vals[on]
+        return d
+
+    def update_diagonal(self, delta) -> "SparseMatrix":
+        """A + diag(delta) (the diagonal entries added where A has none)."""
+        idx = np.arange(min(self.shape))
+        return self.add(SparseMatrix.from_coo(self.height, self.width, idx,
+                                              idx, np.asarray(delta)))
 
     # ---------------- device forms ----------------
     def host_ell(self, width: Optional[int] = None, pad_align: int = 8):
@@ -259,3 +297,76 @@ class Graph:
             max(self.num_sources, self.num_targets),
             np.concatenate([rows, self.colind]),
             np.concatenate([self.colind, rows]))
+
+
+@dataclasses.dataclass
+class BSRMatrix:
+    """Block CSR with fixed b×b blocks (host arrays): ``colind`` holds
+    block columns, ``vals`` the (nnzb, b, b) blocks."""
+
+    height: int
+    width: int
+    block: int
+    rowptr: np.ndarray     # (block rows + 1,)
+    colind: np.ndarray     # (nnzb,) block-column indices
+    vals: np.ndarray       # (nnzb, b, b)
+
+    @classmethod
+    def from_sparse(cls, A: SparseMatrix, block: int) -> "BSRMatrix":
+        b = block
+        nbc = -(-A.width // b)
+        rows = A.row_ids()
+        key = (rows // b) * nbc + A.colind // b
+        uniq, inv = np.unique(key, return_inverse=True)
+        vals = np.zeros((uniq.shape[0], b, b), A.vals.dtype)
+        np.add.at(vals, (inv, rows % b, A.colind % b), A.vals)
+        rowptr = np.zeros(-(-A.height // b) + 1, np.int64)
+        np.add.at(rowptr, uniq // nbc + 1, 1)
+        return cls(A.height, A.width, b, np.cumsum(rowptr),
+                   (uniq % nbc).astype(np.int64), vals)
+
+    @property
+    def nnzb(self) -> int:
+        return int(self.colind.shape[0])
+
+    def device(self, *, device, dtype) -> "BSRDevice":
+        """Padded block-ELL form on ``device``: every block row holds the
+        longest row's count of blocks (zero blocks pad)."""
+        nnzr = np.diff(self.rowptr)
+        nbr = nnzr.shape[0]
+        wmax = max(1, int(nnzr.max()) if nbr else 1)
+        b = self.block
+        cols = np.zeros((nbr, wmax), np.int64)
+        vals = np.zeros((nbr, wmax, b, b), self.vals.dtype)
+        r = np.repeat(np.arange(nbr), nnzr)
+        offs = np.arange(self.nnzb) - np.repeat(self.rowptr[:-1], nnzr)
+        cols[r, offs] = self.colind
+        vals[r, offs] = self.vals
+        return BSRDevice(self.height, self.width, b,
+                         torch.as_tensor(cols).to(device),
+                         torch.as_tensor(vals).to(device, dtype))
+
+    def to_dense(self) -> np.ndarray:
+        b = self.block
+        nbr = self.rowptr.shape[0] - 1
+        out = np.zeros((nbr, b, -(-self.width // b), b), self.vals.dtype)
+        brow = np.repeat(np.arange(nbr), np.diff(self.rowptr))
+        np.add.at(out, (brow, slice(None), self.colind), self.vals)
+        return out.reshape(nbr * b, -1)[:self.height, :self.width]
+
+
+@dataclasses.dataclass
+class BSRDevice:
+    """Device block-ELL: ``y[r] = Σ_w vals[r, w] · x_block[cols[r, w]]``."""
+    height: int
+    width: int
+    block: int
+    cols: torch.Tensor   # (block rows, wmax) int64
+    vals: torch.Tensor   # (block rows, wmax, b, b)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.block
+        pad = -x.shape[0] % b
+        xb = torch.nn.functional.pad(x, (0, pad)).reshape(-1, b)
+        y = torch.matmul(self.vals, xb[self.cols][..., None]).sum(1)
+        return y.reshape(-1)[:self.height]

@@ -17,16 +17,18 @@ from .symbolic import SymbolicFactorization, analyze
 
 
 class SparseLDLFactorization:
-    """Supernodal multifrontal LDLᵀ solver on one device.
+    """Supernodal multifrontal LDLᵀ/LDLᴴ solver on one device.
 
-        f = SparseLDLFactorization(device="cuda", dtype=torch.float32)
-        f.initialize(A)                    # ordering + symbolic (host)
+        f = SparseLDLFactorization(device="cuda", dtype=torch.complex64)
+        f.initialize(A, hermitian=False)   # ordering + symbolic (host)
         f.factor()                         # numeric (device, level by level)
         x = f.solve(b)
         f.change_nonzero_values(new_vals)  # reuse symbolic; refactor
 
-    ``spd``: use the Cholesky front kernel (A must be positive definite).
-    Complex matrices are not ported yet (``NotImplementedError``).
+    ``dtype``: float32, float64, complex64 or complex128; a complex A needs
+    a complex dtype, a real A is promoted to a complex one.  ``spd``: use
+    the Cholesky front kernel (A must be positive definite, or Hermitian
+    positive definite with ``hermitian=True``).
     """
 
     def __init__(self, *, device, dtype, spd: bool = False):
@@ -34,21 +36,25 @@ class SparseLDLFactorization:
         self.dtype = working_dtype(dtype)
         self.spd = spd
         self.A: Optional[SparseMatrix] = None
+        self.hermitian = False
         self.symb: Optional[SymbolicFactorization] = None
         self.ea_plan: Optional[EAPlan] = None
         self.numeric: Optional[LDLFactorization] = None
         self._reg = None
 
-    def initialize(self, A: SparseMatrix, perm: Optional[np.ndarray] = None,
-                   relax: int = 8, cutoff: int = 64,
+    def initialize(self, A: SparseMatrix, hermitian: bool = False,
+                   perm: Optional[np.ndarray] = None, relax: int = 8,
+                   cutoff: int = 64,
                    size_bucket: float = 0.0) -> "SparseLDLFactorization":
         """Ordering + symbolic analysis on the host, then the plans move to
-        the device (reference ``Initialize``)."""
-        if np.iscomplexobj(A.vals):
-            raise NotImplementedError(
-                "complex sparse factorizations are not ported to "
-                "elemental_tpu_torch yet; see ROADMAP.md (queue 1)")
+        the device (reference ``Initialize``).  ``hermitian``: factor A as
+        L·D·Lᴴ; otherwise a complex A is complex-symmetric, L·D·Lᵀ."""
+        if np.iscomplexobj(A.vals) and not self.dtype.is_complex:
+            raise TypeError(f"a complex matrix needs a complex working "
+                            f"dtype, not {self.dtype}: the imaginary part "
+                            f"would be dropped")
         self.A = A
+        self.hermitian = hermitian
         if perm is None:
             from .ordering import nested_dissection
             perm = nested_dissection(A, cutoff=cutoff)
@@ -58,6 +64,14 @@ class SparseLDLFactorization:
         self.numeric = None
         return self
 
+    @property
+    def initialized(self) -> bool:
+        return self.symb is not None
+
+    @property
+    def factored(self) -> bool:
+        return self.numeric is not None
+
     def factor(self, reg=None) -> "SparseLDLFactorization":
         """Numeric factorization (reference ``Factor``; ``reg`` enables the
         RegularizedLDL path: A + diag(reg) is factored)."""
@@ -65,7 +79,8 @@ class SparseLDLFactorization:
             raise RuntimeError("call initialize() first")
         self._reg = reg
         self.numeric = factor(self.symb, self.A.vals, ea_plan=self.ea_plan,
-                              dtype=self.dtype, reg=reg, spd=self.spd)
+                              dtype=self.dtype, conjugate=self.hermitian,
+                              reg=reg, spd=self.spd)
         return self
 
     def change_nonzero_values(self, new_vals) -> "SparseLDLFactorization":
@@ -96,6 +111,10 @@ class SparseLDLFactorization:
     def multiply_with_l(self, x, adjoint: bool = False) -> torch.Tensor:
         return self._numeric().multiply_with_l(x, adjoint)
 
+    def diagonal(self) -> torch.Tensor:
+        """The pivots D, in permuted order."""
+        return self._numeric().d
+
     def inertia(self):
         return self._numeric().inertia()
 
@@ -106,6 +125,11 @@ class SparseLDLFactorization:
         if self.A is None:
             raise RuntimeError("call initialize() first")
         return residual_bound(self.dtype, self.A.height, factor)
+
+    def factor_nnz(self) -> int:
+        if self.symb is None:
+            raise RuntimeError("call initialize() first")
+        return self.symb.nnz_factor
 
     def factor_gflops(self) -> float:
         """Flop estimate of the factorization (reference

@@ -13,13 +13,20 @@ padded fronts in one flat pool; per level the factor runs
   2. a batched masked *partial* LDL of all fronts of the level (the Schur
      complement is left in place).
 
+Values may be real or complex.  ``conjugate`` makes the factor an LDLᴴ of a
+Hermitian matrix: the assembly conjugates the entries the symbolic plan
+marks (``LevelPlan.asm_conj``), and every product with Lᵀ becomes one with
+Lᴴ, as in the JAX package; without it a complex matrix is factored as
+complex-symmetric, LDLᵀ.
+
 The fronts are updated in place in the pool (views of it), which keeps the
 factor's memory at one pool.  Solves use the padded-unit trick: the partial
 factor extended with an identity trailing block makes one batched triangular
 solve per level do both the panel solve and the update accumulation.
 
 Precision: the factor, the solves and the panel inverses run with TF32 off
-(:func:`full_fp32_matmul`), as the JAX package pins
+(:func:`full_fp32_matmul`, which covers complex64 products too), as the JAX
+package pins
 ``default_matmul_precision("highest")``: low-precision products destroy the
 quasi-definite KKT factor (EXPERIMENTS §E5.3).
 """
@@ -53,17 +60,19 @@ def full_fp32_matmul():
 def _clamp_pivot(dk, s):
     """Dynamic pivot regularization (reference ``RegularizedLDL``): where a
     signed floor s ≠ 0 is given, boost a too-small pivot's MAGNITUDE to |s|,
-    keeping the pivot's own sign (an exactly-zero pivot takes s's sign)."""
+    keeping the pivot's own sign (an exactly-zero pivot takes s's sign).
+    On complex pivots the sign is z/|z|, as ``jnp.sign`` takes it."""
     mag = torch.abs(s)
-    keep = torch.where(dk == 0, torch.sign(s), torch.sign(dk))
+    keep = torch.where(dk == 0, torch.sgn(s), torch.sgn(dk))
     return torch.where((s != 0) & (torch.abs(dk) < mag), keep * mag, dk)
 
 
-def _masked_partial_ldl(F, ns, max_ns: int, pf=None):
+def _masked_partial_ldl(F, ns, max_ns: int, conjugate: bool, pf=None):
     """Eliminate the first ``ns[f]`` columns of each padded front ``F[f]``
     (nf×S×S, lower), in place: unit L in the panel, D on the diagonal, the
-    Schur complement in the trailing block.  ``pf``: optional (nf, S)
-    signed pivot floors (see :func:`_clamp_pivot`)."""
+    Schur complement in the trailing block (L·D·Lᴴ with ``conjugate``).
+    ``pf``: optional (nf, S) signed pivot floors (see :func:`_clamp_pivot`).
+    """
     S = F.shape[1]
     idx = torch.arange(S, device=F.device)
     for k in range(max_ns):
@@ -77,15 +86,16 @@ def _masked_partial_ldl(F, ns, max_ns: int, pf=None):
                           torch.zeros((), dtype=F.dtype, device=F.device))
         # the rank-1 update touches only (i, j) > k: col is 0 elsewhere
         c = col[:, k + 1:]
-        F[:, k + 1:, k + 1:] -= c[:, :, None] * c[:, None, :] \
+        row = c.conj() if conjugate else c
+        F[:, k + 1:, k + 1:] -= c[:, :, None] * row[:, None, :] \
             * dk[:, None, None]
         F[:, :, k] = torch.where(below, col, F[:, :, k])
         F[:, k, k] = dk
     return F
 
 
-def _masked_partial_ldl_blocked(F, ns, max_ns: int, nb: int = 32,
-                                pf=None):
+def _masked_partial_ldl_blocked(F, ns, max_ns: int, conjugate: bool,
+                                nb: int = 32, pf=None):
     """Blocked right-looking variant of :func:`_masked_partial_ldl`
     (reference ``ProcessFront.hpp:29-60``): per nb-column panel, rank-1
     eliminations inside the S×nb panel, then the trailing rank-nb update as
@@ -115,29 +125,33 @@ def _masked_partial_ldl_blocked(F, ns, max_ns: int, nb: int = 32,
             below = (idx > k)[None, :] & elim[:, None]
             col = torch.where(below, Fp[:, :, kk] / safe[:, None], zero)
             # within-panel update: rows > k, panel columns > kk
+            row = col[:, k + 1:j1]
+            if conjugate:
+                row = row.conj()
             Fp[:, k + 1:, kk + 1:] -= col[:, k + 1:, None] \
-                * col[:, None, k + 1:j1] * dk[:, None, None]
+                * row[:, None, :] * dk[:, None, None]
             Fp[:, :, kk] = torch.where(below, col, Fp[:, :, kk])
             Fp[:, k, kk] = dk
         Fw[:, :, j0:j1] = Fp
         if j1 < Sp:
-            # trailing rank-nb update U = (Lp·dp)·Lpᵀ on columns ≥ j1
+            # trailing rank-nb update U = (Lp·dp)·Lpᵀ (Lpᴴ) on columns ≥ j1
             prow = j0 + tpan
             dp = Fp[:, prow, tpan]
             # non-eliminated panel columns (pivot ≥ ns) hold Schur data
             keep = ((idx[:, None] > prow[None, :])[None]
                     & (prow[None, None, :] < ns[:, None, None]))
             Lp = torch.where(keep, Fp, zero)
-            Fw[:, :, j1:] -= torch.matmul(Lp * dp[:, None, :],
-                                          Lp[:, j1:, :].transpose(1, 2))
+            Lt = Lp[:, j1:, :].mH if conjugate else Lp[:, j1:, :].mT
+            Fw[:, :, j1:] -= torch.matmul(Lp * dp[:, None, :], Lt)
     if Sp != S:
         F.copy_(Fw[:, :S, :S])
     return F
 
 
-def _masked_partial_spd(F, ns, max_ns: int):
-    """SPD path, in place: masked batched Cholesky of the leading block, one
-    triangular solve for the panel, one matmul for the Schur complement.
+def _masked_partial_spd(F, ns, max_ns: int, conjugate: bool):
+    """SPD (HPD with ``conjugate``) path, in place: masked batched Cholesky
+    of the leading block, one triangular solve for the panel, one matmul for
+    the Schur complement.
     Same pool layout as the LDL kernels (unit-L panel, D on the diagonal).
     A front that is not positive definite comes out NaN, as in the JAX
     package, without a device synchronisation."""
@@ -149,7 +163,8 @@ def _masked_partial_spd(F, ns, max_ns: int):
     nsb = ns[:, None, None]
     lead = F[:, :m, :m]
     # fronts carry only the lower triangle; Cholesky reads a full matrix
-    lead = torch.tril(lead) + torch.tril(lead, -1).transpose(1, 2)
+    up = torch.tril(lead, -1)
+    lead = torch.tril(lead) + (up.mH if conjugate else up.mT)
     maskb = (im[None, :, None] < nsb) & (im[None, None, :] < nsb)
     A11 = torch.where(maskb, lead, torch.eye(m, dtype=dt, device=dev))
     L11, info = torch.linalg.cholesky_ex(A11)
@@ -158,16 +173,16 @@ def _masked_partial_spd(F, ns, max_ns: int):
     colm = im[None, None, :] < nsb
     zero = torch.zeros((), dtype=dt, device=dev)
     B = torch.where(colm, F[:, :, :m], zero)
-    # P·L11ᵀ = B  ⇒  P = the Cholesky panel (rows of L), S×m
-    P = torch.linalg.solve_triangular(L11.transpose(1, 2), B, upper=True,
-                                      left=False)
+    # P·L11ᵀ = B (P·L11ᴴ = B)  ⇒  P = the Cholesky panel (rows of L), S×m
+    P = torch.linalg.solve_triangular(L11.mH if conjugate else L11.mT, B,
+                                      upper=True, left=False)
     dm = torch.diagonal(L11, dim1=-2, dim2=-1)
     Lunit = P / dm[:, None, :]
     panel = torch.where(colm & (iS[None, :, None] > im[None, None, :]),
                         Lunit, F[:, :, :m])
     panel = torch.where(colm & (iS[None, :, None] == im[None, None, :]),
                         (dm * dm)[:, None, :], panel)
-    U = torch.matmul(P, P.transpose(1, 2))
+    U = torch.matmul(P, P.mH if conjugate else P.mT)
     F[:, :, :m] = panel
     F -= U * (iS[None, None, :] >= nsb)
     return F
@@ -181,6 +196,7 @@ class LDLFactorization:
     symb: SymbolicFactorization
     pool: torch.Tensor           # flat packed fronts (L panels + Schur)
     d: torch.Tensor              # (n,) pivots in permuted order
+    conjugate: bool = False      # L·D·Lᴴ (Hermitian) instead of L·D·Lᵀ
 
     # -- solves -------------------------------------------------------------
     def solve(self, b, ctx=None) -> torch.Tensor:
@@ -241,13 +257,18 @@ class LDLFactorization:
         return torch.where(keep, fronts, torch.zeros(
             (), dtype=fronts.dtype, device=fronts.device)) + eye
 
+    def _adjoint(self, m: torch.Tensor) -> torch.Tensor:
+        """The batch's transposes, conjugated for a Hermitian factor."""
+        return m.mH if self.conjugate else m.mT
+
     def _level_solve(self, xe, lev, forward: bool, linv=None) -> None:
         """One level of the forward (or backward) tree solve, in place on
         the extended right-hand side ``xe``."""
         rows = lev.front_rows                              # (nf, S)
         xf = xe[rows]                                      # (nf, S, k)
         if linv is not None:
-            w = torch.matmul(linv if forward else linv.transpose(1, 2), xf)
+            # backward: L⁻ᵀ, or conj(L⁻ᵀ) = L⁻ᴴ for a Hermitian factor
+            w = torch.matmul(linv if forward else self._adjoint(linv), xf)
         else:
             lp = self._level_panels(lev)
             if forward:
@@ -255,7 +276,7 @@ class LDLFactorization:
                                                   unitriangular=True)
             else:
                 w = torch.linalg.solve_triangular(
-                    lp.transpose(1, 2), xf, upper=True, unitriangular=True)
+                    self._adjoint(lp), xf, upper=True, unitriangular=True)
         delta = w - xf
         xe.index_add_(0, rows.reshape(-1), delta.reshape(-1, xe.shape[1]))
 
@@ -270,8 +291,8 @@ class LDLFactorization:
 
     # -- products ------------------------------------------------------------
     def multiply_with_l(self, x, adjoint: bool = False) -> torch.Tensor:
-        """y = L·x (or Lᵀ·x) in permuted order (reference
-        ``MultiplyWithL``)."""
+        """y = L·x (or Lᵀ·x, Lᴴ·x for a Hermitian factor) in permuted order
+        (reference ``MultiplyWithL``)."""
         with full_fp32_matmul():
             xe = torch.as_tensor(x).to(self.pool.device, self.pool.dtype)
             squeeze = xe.dim() == 1
@@ -284,7 +305,7 @@ class LDLFactorization:
             for lev in self.symb.levels:
                 lp = self._level_panels(lev)
                 if adjoint:
-                    lp = lp.transpose(1, 2)
+                    lp = self._adjoint(lp)
                 rows = lev.front_rows
                 xf = xe[rows]
                 yf = torch.matmul(lp, xf)
@@ -294,17 +315,19 @@ class LDLFactorization:
             return out[:, 0] if squeeze else out
 
     def inertia(self):
-        """(#positive, #negative, #zero) pivots."""
-        d = self.d
+        """(#positive, #negative, #zero) pivots, by their real parts."""
+        d = self.d.real
         return (int((d > 0).sum()), int((d < 0).sum()), int((d == 0).sum()))
 
 
 def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
-           reg=None, spd: bool = False, pivot_floor=None,
-           panel_blocksize: int = 32) -> LDLFactorization:
+           conjugate: bool = False, reg=None, spd: bool = False,
+           pivot_floor=None, panel_blocksize: int = 32) -> LDLFactorization:
     """Numeric multifrontal LDL from the symbolic plan (on the device, see
     ``SymbolicFactorization.to``) and A's values in original entry order.
 
+    ``conjugate``: factor a Hermitian A as L·D·Lᴴ (a complex A is
+    otherwise complex-symmetric, L·D·Lᵀ; a real A does not notice).
     ``reg``: optional diagonal regularization in *original* order (the
     ``RegularizedLDL`` path).  ``spd``: the Cholesky front kernel (A must be
     positive definite).  ``pivot_floor``: optional (n,) SIGNED pivot floors
@@ -314,11 +337,11 @@ def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
     applied through K1."""
     with full_fp32_matmul():
         return _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd,
-                            pivot_floor, panel_blocksize)
+                            pivot_floor, panel_blocksize, conjugate)
 
 
 def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
-                 panel_blocksize):
+                 panel_blocksize, conjugate):
     dev = symb.perm.device
     with_children = {li for li, lev in enumerate(symb.levels)
                      if lev.child_dst.numel()}
@@ -326,6 +349,11 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
             set(ea_plan.levels) != with_children:
         raise ValueError("extend-add plan does not belong to this "
                          "symbolic factorization")
+    # only a complex Hermitian factor reads the value map's conjugation mask
+    hermitian = conjugate and dtype.is_complex
+    if hermitian and any(lev.asm_conj is None for lev in symb.levels):
+        raise ValueError("this symbolic plan has no Hermitian value map "
+                         "(from_reference without its matrix)")
     a_vals = torch.as_tensor(a_vals).to(dev, dtype)
     pool = torch.zeros(symb.pool_size, dtype=dtype, device=dev)
     pfp = None
@@ -340,7 +368,10 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
     # assemble every level's A entries up front (independent of elimination)
     for lev in symb.levels:
         if lev.asm_dst.numel():
-            pool.index_add_(0, lev.asm_dst, a_vals[lev.asm_src])
+            vals = a_vals[lev.asm_src]
+            if hermitian:
+                vals = torch.where(lev.asm_conj, vals.conj(), vals)
+            pool.index_add_(0, lev.asm_dst, vals)
         if regp is not None and lev.diag_dst.numel():
             pool.index_add_(0, lev.diag_dst, regp[lev.diag_cols])
 
@@ -354,13 +385,13 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
         max_ns = int(lev.ns.max())
         ns = torch.as_tensor(lev.ns).to(dev)
         if spd:
-            _masked_partial_spd(fronts, ns, max_ns)
+            _masked_partial_spd(fronts, ns, max_ns, conjugate)
         else:
             pf = None if pfp is None else pfp[lev.front_rows]
             if max_ns > panel_blocksize:
-                _masked_partial_ldl_blocked(fronts, ns, max_ns,
+                _masked_partial_ldl_blocked(fronts, ns, max_ns, conjugate,
                                             nb=panel_blocksize, pf=pf)
             else:
-                _masked_partial_ldl(fronts, ns, max_ns, pf=pf)
+                _masked_partial_ldl(fronts, ns, max_ns, conjugate, pf=pf)
         d[lev.diag_cols] = pool[lev.diag_dst]
-    return LDLFactorization(symb, pool, d)
+    return LDLFactorization(symb, pool, d, conjugate)

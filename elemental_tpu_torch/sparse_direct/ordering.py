@@ -155,3 +155,26 @@ def nested_dissection(A, cutoff: int = 64) -> np.ndarray:
 
     perm_out = recurse(np.arange(n))
     return np.asarray(perm_out, np.int64)
+
+
+def natural_nested_dissection(dims: Tuple[int, ...],
+                              cutoff: int = 8) -> np.ndarray:
+    """Analytic nested dissection of a regular grid, row-major indices
+    (reference ``NaturalNestedDissection.cpp``): split the longest axis at
+    its middle plane, order the two halves recursively and the plane last;
+    a block of at most ``cutoff`` points, or one under 3 points along its
+    longest axis, keeps its natural order."""
+    out: List[np.ndarray] = []
+
+    def recurse(block: np.ndarray) -> None:
+        ax = int(np.argmax(block.shape))
+        if block.size <= cutoff or block.shape[ax] < 3:
+            out.append(block.ravel())
+            return
+        mid = block.shape[ax] // 2
+        recurse(block.take(np.arange(mid), ax))
+        recurse(block.take(np.arange(mid + 1, block.shape[ax]), ax))
+        out.append(block.take([mid], ax).ravel())
+
+    recurse(np.arange(int(np.prod(dims))).reshape(dims))
+    return np.concatenate(out).astype(np.int64)

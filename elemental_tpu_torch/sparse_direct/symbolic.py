@@ -11,6 +11,14 @@ positions in their parents' fronts), the port uses array operations.
 :meth:`SymbolicFactorization.to` moves the plan's index arrays onto a
 device; :func:`from_reference` takes a plan made by the JAX package, so both
 packages can compute from identical plans.
+
+Hermitian value map.  Each lower entry of the permuted matrix is assembled
+from one of the pair (i,j)/(j,i), the first in CSR order, as in the JAX
+package.  Where that occurrence lies above the permuted diagonal, a
+Hermitian factor needs its conjugate: ``LevelPlan.asm_conj`` marks those
+entries and ``numeric.factor`` conjugates them when ``conjugate`` is set.
+The JAX package does not, so its LDLᴴ factors a wrong matrix under every
+ordering that puts such an entry first (ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -230,6 +238,10 @@ class LevelPlan:
     child_src: np.ndarray          # extend-add: pool flat src (child Schur)
     diag_dst: np.ndarray           # (Σ ns,) pool flat of eliminated diag
     diag_cols: np.ndarray          # (Σ ns,) global permuted column ids
+    # (len(asm_src),) bool: the assembled occurrence lay above the permuted
+    # diagonal, so a Hermitian factor takes its conjugate; None when the
+    # plan came without its matrix (from_reference without A)
+    asm_conj: Optional[np.ndarray] = None
 
 
 LEVEL_ARRAY_FIELDS = ("front_rows", "asm_dst", "asm_src", "child_dst",
@@ -260,28 +272,41 @@ class SymbolicFactorization:
         def conv(a):
             return torch.from_numpy(np.array(a, dtype=idt)).to(device)
 
+        def mask(a):
+            return None if a is None else torch.from_numpy(
+                np.asarray(a, bool)).to(device)
+
         levels = [dataclasses.replace(
-            lev, **{f: conv(getattr(lev, f)) for f in LEVEL_ARRAY_FIELDS})
+            lev, asm_conj=mask(lev.asm_conj),
+            **{f: conv(getattr(lev, f)) for f in LEVEL_ARRAY_FIELDS})
             for lev in self.levels]
         return dataclasses.replace(self, levels=levels,
                                    perm=conv(self.perm),
                                    iperm=conv(self.iperm))
 
 
-def from_reference(obj) -> SymbolicFactorization:
+def from_reference(obj, A: Optional[SparseMatrix] = None
+                   ) -> SymbolicFactorization:
     """Host copy of a symbolic plan made by another implementation with the
     same fields (the JAX package's ``SymbolicFactorization``, on host or
-    device): every array becomes an int64 NumPy array."""
+    device): every array becomes an int64 NumPy array.  With the plan's
+    matrix ``A``, the Hermitian value map (``LevelPlan.asm_conj``) is
+    derived too; without it the copy cannot make a Hermitian factor."""
     i64 = lambda a: np.asarray(a).astype(np.int64)  # noqa: E731
     sns = [Supernode((int(s.cols[0]), int(s.cols[1])), i64(s.struct),
                      int(s.parent), tuple(int(c) for c in s.children),
                      int(s.height)) for s in obj.supernodes]
+    iperm = i64(obj.iperm)
+    # each stored entry of A: does it lie above the permuted diagonal?
+    above = None if A is None else iperm[A.row_ids()] < iperm[A.colind]
     levels = [LevelPlan(i64(lev.sn_ids), i64(lev.ns), int(lev.front_size),
                         int(lev.offset),
+                        asm_conj=(None if above is None
+                                  else above[i64(lev.asm_src)]),
                         **{f: i64(getattr(lev, f))
                            for f in LEVEL_ARRAY_FIELDS})
               for lev in obj.levels]
-    return SymbolicFactorization(int(obj.n), i64(obj.perm), i64(obj.iperm),
+    return SymbolicFactorization(int(obj.n), i64(obj.perm), iperm,
                                  sns, levels, int(obj.pool_size),
                                  i64(obj.a_perm_src), int(obj.nnz_factor))
 
@@ -310,7 +335,8 @@ def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
     pi = iperm[rows]
     pj = iperm[A.colind]
     # keep lower triangle of the permuted matrix (incl. diagonal); a
-    # symmetric pair (i,j)/(j,i) maps to the same lower entry — keep one.
+    # symmetric pair (i,j)/(j,i) maps to the same lower entry — keep one
+    # (the first; where it lies above the diagonal, asm_conj says so)
     swap = pi < pj
     li = np.where(swap, pj, pi)
     lj = np.where(swap, pi, pj)
@@ -468,6 +494,7 @@ def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
                            + ns * (sn_len[lev.sn_ids] - ns)).sum())
         lev.asm_dst = np.asarray(asm_dst_all[lev_i], np.int64)
         lev.asm_src = np.asarray(asm_src_all[lev_i], np.int64)
+        lev.asm_conj = swap[lev.asm_src]
         lev.child_dst = (np.concatenate(child_dst_all[lev_i])
                          if child_dst_all[lev_i]
                          else np.empty(0, np.int64))

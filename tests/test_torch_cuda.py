@@ -64,6 +64,11 @@ def _plan(index_dtype):
     return symb, plan
 
 
+# K1's dtypes and its tolerance against index_add_ (summation order only)
+K1_TOL = [(torch.float32, 1e-5), (torch.float64, 1e-12),
+          (torch.complex64, 1e-5), (torch.complex128, 1e-12)]
+
+
 def _ea_case(case, cuda):
     """(pool size, plan on the card) of a K1 test plan."""
     if case == "laplacian_8":
@@ -86,8 +91,7 @@ def _ea_case(case, cuda):
 
 
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("dtype,rtol", K1_TOL)
 @pytest.mark.parametrize("case", ["laplacian_8", "kkt_fd_8",
                                   "single_pair_runs", "runs_and_multi"])
 def test_kernel_run_plan_is_bit_stable(cuda, case, dtype, rtol,
@@ -118,8 +122,7 @@ def test_kernel_run_plan_is_bit_stable(cuda, case, dtype, rtol,
 
 
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("dtype,rtol", K1_TOL)
 def test_kernel_matches_plain(cuda, dtype, rtol, index_dtype):
     symb, plan = _plan(index_dtype)
     plan = plan.to(cuda)
@@ -180,14 +183,80 @@ def test_factor_on_card_matches_cpu(cuda, spd):
 
 def test_factor_f32_has_no_tf32(cuda):
     """An f32 factor on the card solves to ~1e-7, not the ~1e-3 that TF32
-    products would leave (the reference's 'highest' precision pin)."""
+    products would leave (the reference's 'highest' precision pin); so does
+    a complex64 one (cgemm is subject to the same math mode)."""
     A = sparse_laplacian_3d(16, 16, 16, scaled=False)
-    f = SparseLDLFactorization(device=cuda, dtype=torch.float32)
-    f.initialize(A, cutoff=64).factor()
-    b = np.random.default_rng(1).standard_normal(A.height)
-    x = f.solve(b).cpu().numpy().astype(np.float64)
-    r = np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b)
-    assert r < 1e-5
+    Ac = dataclasses.replace(A, vals=A.vals * (1 + 0.5j))
+    for M, dtype in ((A, torch.float32), (Ac, torch.complex64)):
+        f = SparseLDLFactorization(device=cuda, dtype=dtype)
+        f.initialize(M, cutoff=64).factor()
+        b = np.random.default_rng(1).standard_normal(M.height)
+        x = f.solve(b).cpu().numpy().astype(np.complex128)
+        r = np.linalg.norm(M.to_scipy() @ x - b) / np.linalg.norm(b)
+        assert r < 1e-5, (dtype, r)
+
+
+def _magnetic(n1, n2, sigma):
+    """The unscaled grid Laplacian in the Landau gauge (flux 1/8 a
+    plaquette), minus sigma on the diagonal: Hermitian."""
+    A = sparse_laplacian_2d(n1, n2, scaled=False)
+    r, c = A.row_ids(), A.colind
+    phase = np.exp(2j * np.pi / 8 * (r % n2))
+    v = A.vals.astype(np.complex128)
+    v = np.where(c - r == n2, v * phase, v)
+    v = np.where(r - c == n2, v * phase.conj(), v)
+    return dataclasses.replace(A, vals=np.where(r == c, v - sigma, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["helmholtz", "hermitian", "hpd"])
+def test_complex_factor_on_card_matches_cpu(cuda, case, dtype):
+    """Complex-symmetric LDLᵀ, Hermitian LDLᴴ and HPD Cholesky on the card
+    through K1's complex instantiations, against the same factor on the
+    CPU: in complex128 to 1e-12 of max|pool|; in complex64 the card's pool
+    is held to the CPU's complex128 pool within four times the CPU complex64
+    pool's own distance from it (plus 1e-6 of max|pool|): the indefinite
+    Hermitian factor already loses most of complex64's digits on the CPU,
+    and the card's rounding differs.  Then the solve, the solve through
+    the panel inverses (conj(L⁻ᵀ) backward) and the refined solve against
+    the matrix."""
+    from elemental_tpu_torch.matrices import sparse_helmholtz_2d
+    from elemental_tpu_torch.sparse_direct import natural_nested_dissection
+    if case == "helmholtz":
+        A = sparse_helmholtz_2d(24, 20, 900.0 * (1 + 0.05j))
+    else:
+        A = _magnetic(24, 20, 1.3 if case == "hermitian" else 0.0)
+    herm, spd = case != "helmholtz", case == "hpd"
+    perm = natural_nested_dissection((24, 20))
+    fc = SparseLDLFactorization(device="cpu", dtype=dtype, spd=spd)
+    fc.initialize(A, hermitian=herm, perm=perm).factor()
+    fg = SparseLDLFactorization(device=cuda, dtype=dtype, spd=spd)
+    fg.initialize(A, hermitian=herm, perm=perm)
+    before = extend_add.launches
+    fg.factor()
+    assert extend_add.launches - before == len(fg.ea_plan.levels) > 0
+    pc, pg = fc.numeric.pool, fg.numeric.pool.cpu()
+    assert pg.dtype == dtype
+    if dtype == torch.complex128:
+        assert float((pc - pg).abs().max()) <= 1e-12 * float(
+            pc.abs().max())
+    else:
+        f128 = SparseLDLFactorization(device="cpu", dtype=torch.complex128,
+                                      spd=spd)
+        ref = f128.initialize(A, hermitian=herm, perm=perm).factor()\
+            .numeric.pool
+        cpu_err = float((pc.to(ref.dtype) - ref).abs().max())
+        card_err = float((pg.to(ref.dtype) - ref).abs().max())
+        assert card_err <= 4 * cpu_err + 1e-6 * float(ref.abs().max())
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal(A.height) + 1j * rng.standard_normal(A.height)
+    S = A.to_scipy()
+    num = fg.numeric
+    for x in (num.solve(b), num.solve(b, num.solve_context()),
+              fg.solve_with_iterative_refinement(b, iters=2)):
+        x = x.cpu().numpy().astype(np.complex128)
+        r = np.linalg.norm(S @ x - b) / np.linalg.norm(b)
+        assert r < fg.residual_bound(), (case, dtype, r)
 
 
 def test_lp_direct_on_card_matches_cpu(cuda):

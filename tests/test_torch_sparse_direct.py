@@ -218,12 +218,14 @@ def test_facade_matches_reference(spd):
 
 
 def test_facade_rejects_complex_and_wrong_dtypes():
+    """A complex matrix with a real working dtype would lose its imaginary
+    part: refused.  So are dtypes the factor has no kernels for, and a
+    factor before ``initialize``."""
     A = sparse_laplacian_3d(3, 3, 3)
     Ac = dataclasses.replace(A, vals=A.vals.astype(np.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseLDLFactorization(device="cpu", dtype=F64).initialize(Ac)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseLDLFactorization(device="cpu", dtype=torch.complex128)
+    for real in (F64, torch.float32):
+        with pytest.raises(TypeError, match="imaginary"):
+            SparseLDLFactorization(device="cpu", dtype=real).initialize(Ac)
     with pytest.raises(TypeError):
         SparseLDLFactorization(device="cpu", dtype=torch.float16)
     f = SparseLDLFactorization(device="cpu", dtype=F64)
