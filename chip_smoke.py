@@ -111,6 +111,26 @@ Phases, each printing at least one line and each fatal when it fails:
     backward step) against substitution.  K1 alone on the 384² plan in
     both complex dtypes against ``index_add_``, as phase 3, and one
     complex64 factor of each size under ``torch.profiler``.
+19. the dense core and the BLAS tier (``core``, ``ops``; plain torch, no
+    kernel of the port): ``Grid()`` is 1×1 on the card and every block of
+    every result lies there; an 8192² float64 matrix on a 2×2 grid over the
+    card through every pair of ``DIST_PAIRS`` and back, bit-exact; a
+    ``BlockCyclicMatrix`` (nb = 128) round trip and a gemm through the
+    conversion; ``ops.gemm`` at 8192³ in float32 and float64, ``alg='xla'``
+    on the 1×1 grid and ``stationary_c``, ``stationary_a``, ``stationary_b``
+    and ``pipelined`` on the 2×2 grid, and 8191×8190×8193 on the 2×2 grid
+    (padded), each within 1e-5 (float32: TF32 would read about 1e-3) and
+    1e-13 (float64) of the float64 product, with ms (CUDA events, 10
+    launches), TFLOP/s and the ratio to one ``torch.matmul`` of the same
+    operands; ``trsm`` ('L','L','N','N') and ('R','U','C','N') at n = 8192
+    with 8192 right-hand sides in float32, float64 and complex64, the
+    residual ‖op(T)X − αB‖/(‖T‖‖X‖) under ``residual_bound``, beside
+    ``torch.linalg.solve_triangular``; ``herk`` and ``trrk`` at 8192×4096,
+    ``symm``, ``hemm`` (complex64) and ``trmm`` at 8192² against the same
+    formula in float64; ``gemv``, ``ger``, ``axpy``, ``nrm2`` and ``dot`` at
+    8192² on the 2×2 grid; ``gemm_3d`` on a 2×2×2 mesh over the card at
+    4096³; 10⁵ queued updates on an 8192² matrix against ``index_put_(...,
+    accumulate=True)``, and 1000 queued pulls.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -2244,6 +2264,293 @@ def phase_complex(seed: int, orders) -> tuple:
     return launches, k1
 
 
+DENSE_N = 8192          # phase 19's matrices: DENSE_N², the 3-D GEMM at half
+
+
+def _fro(x, ref) -> float:
+    """‖x − ref‖_F / ‖ref‖_F in float64 (complex128 for complex)."""
+    import torch
+    wide = torch.complex128 if ref.is_complex() else torch.float64
+    ref = ref.to(wide)
+    return float(torch.linalg.norm(x.to(wide) - ref)
+                 / torch.linalg.norm(ref))
+
+
+def _on_card(D) -> bool:
+    return all(D.local(i, j).is_cuda for i, j in D.grid.positions())
+
+
+def phase_dense(seed: int) -> None:
+    """19: the dense core and the BLAS tier on the card (see the module
+    docstring).  Every gate is fatal."""
+    import warnings
+    import numpy as np
+    import torch
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import (DIST_PAIRS, MC, MR, Grid,
+                                          as_array, distribute,
+                                          residual_bound)
+    from elemental_tpu_torch.core.blockcyclic import BlockCyclicMatrix
+    tag = "19 dense"
+    n = DENSE_N
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape, dtype):
+        real = {torch.complex64: torch.float32}.get(dtype, dtype)
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=real)
+        if dtype.is_complex:
+            x = torch.complex(x, torch.randn(shape, generator=gen,
+                                             device="cuda", dtype=real))
+        return x
+
+    Grid.set_default(None)
+    g1 = Grid()
+    dev = g1.device(0, 0)
+    check(g1.size == 1 and dev.type == "cuda" and (dev.index or 0) == 0,
+          f"Grid() is {g1}, not 1×1 on the first card")
+    g4 = Grid(devices=[dev] * 4, height=2)
+    print(f"[{tag}] Grid() = {g1}; the 2×2 grid repeats it: {g4}")
+
+    # redistribution: every pair of DIST_PAIRS and back, bit-exact
+    a = rand((n, n), torch.float64)
+    A = distribute(a, MC, MR, g4)
+    check(_on_card(A) and tuple(A.local(1, 1).shape) == (n // 2, n // 2),
+          "[MC,MR] blocks")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pair in DIST_PAIRS:
+        B = A.redistribute(*pair)
+        check(_on_card(B), f"[{pair[0].value},{pair[1].value}] off the card")
+        check(torch.equal(as_array(B.redistribute(MC, MR)), a),
+              f"[MC,MR] → [{pair[0].value},{pair[1].value}] → [MC,MR] "
+              f"changed the matrix")
+        del B
+    torch.cuda.synchronize()
+    print(f"[{tag}] redistribution: {n}² float64 on the 2×2 grid through "
+          f"all {len(DIST_PAIRS)} pairs and back, bit-exact, in "
+          f"{time.perf_counter() - t0:.2f} s (with the checks)")
+
+    # block-cyclic: a round trip and a gemm through the conversion
+    nb = 128
+    Bc = BlockCyclicMatrix.from_element(A, mb=nb, nb=nb)
+    per = len(Bc.rperm) // 2
+    check(all(((Bc.rperm[p * per:(p + 1) * per] // nb) % 2 == p).all()
+              for p in range(2)), "block-cyclic row ownership")
+    check(torch.equal(as_array(Bc.to_element()), a),
+          "block-cyclic round trip changed the matrix")
+    b = rand((n, n), torch.float64)
+    Cb = ops.gemm("N", "N", 1.0, Bc.to_element(),
+                  BlockCyclicMatrix.from_element(
+                      distribute(b, MC, MR, g4), mb=nb, nb=nb).to_element())
+    err = _fro(as_array(Cb), a @ b)
+    check(err <= 1e-13, f"gemm through the block-cyclic layout: {err:.3g}")
+    print(f"[{tag}] block-cyclic nb = {nb}: {n}² round trip bit-exact; "
+          f"gemm through the conversion, rel. error {err:.3g}")
+    del A, Bc, Cb, a, b
+
+    # GEMM: the 1×1 grid's 'xla' and each SUMMA variant on the 2×2 grid
+    gates = {torch.float32: 1e-5, torch.float64: 1e-13}
+    for dtype, gate in gates.items():
+        a, b = rand((n, n), dtype), rand((n, n), dtype)
+        ref = a.double() @ b.double()
+        lib = cuda_ms(lambda: torch.matmul(a, b), 10)
+        tf = 2.0 * n ** 3 / 1e9
+        cases = [("xla", g1)] + [(alg, g4) for alg in (
+            "stationary_c", "stationary_a", "stationary_b", "pipelined")]
+        for alg, g in cases:
+            A, B = distribute(a, MC, MR, g), distribute(b, MC, MR, g)
+            C = ops.gemm("N", "N", 1.0, A, B, alg=alg)
+            check(_on_card(C), f"gemm {alg}: a block off the card")
+            err = _fro(as_array(C), ref)
+            check(err <= gate, f"gemm {alg} {dtype}: rel. error {err:.3g} "
+                  f"over {gate:g}")
+            del C
+            ms = cuda_ms(lambda: ops.gemm("N", "N", 1.0, A, B, alg=alg), 10)
+            print(f"[{tag}] gemm {str(dtype)[6:]} {n}³ {alg} on "
+                  f"{g.height}×{g.width}: {ms:.3f} ms, {tf / ms:.2f} "
+                  f"TFLOP/s, {ms / lib:.3f}× torch.matmul ({lib:.3f} ms); "
+                  f"rel. error {err:.3g}")
+        m_, k_, n_ = n - 1, n - 2, n + 1
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)   # not divisible
+            A = distribute(a[:m_, :k_], MC, MR, g4)
+            B = distribute(rand((k_, n_), dtype), MC, MR, g4)
+        alg = ops.summa.choose_algorithm(m_, n_, k_, g4)
+        C = ops.gemm("N", "N", 1.0, A, B)
+        err = _fro(as_array(C), as_array(A).double() @ as_array(B).double())
+        check(err <= gate, f"gemm {m_}×{k_}×{n_} {dtype}: {err:.3g}")
+        del C
+        ms = cuda_ms(lambda: ops.gemm("N", "N", 1.0, A, B), 10)
+        print(f"[{tag}] gemm {str(dtype)[6:]} {m_}×{k_}×{n_} (padded) on "
+              f"2×2, auto = {alg}: {ms:.3f} ms, "
+              f"{2.0 * m_ * n_ * k_ / 1e9 / ms:.2f} TFLOP/s; rel. error "
+              f"{err:.3g}")
+        del A, B, a, b, ref
+        torch.cuda.empty_cache()
+
+    # trsm: ‖op(T)X − αB‖ / (‖T‖‖X‖) under residual_bound
+    for dtype in (torch.float32, torch.float64, torch.complex64):
+        eye = n * torch.eye(n, device="cuda", dtype=dtype)
+        rhs = rand((n, n), dtype)
+        for side, uplo, orient in (("L", "L", "N"), ("R", "U", "C")):
+            T = (torch.tril if uplo == "L" else torch.triu)(
+                rand((n, n), dtype)) + eye
+            X = ops.trsm(side, uplo, orient, "N", 1.5, T, rhs)
+            wide = torch.complex128 if dtype.is_complex else torch.float64
+            Tw, Xw = T.to(wide), X.to(wide)
+            op = Tw if orient == "N" else Tw.conj().T
+            r = (op @ Xw if side == "L" else Xw @ op) - 1.5 * rhs.to(wide)
+            res = float(torch.linalg.norm(r) / (torch.linalg.norm(Tw)
+                                                * torch.linalg.norm(Xw)))
+            bound = residual_bound(dtype, n)
+            check(res < bound, f"trsm {side}{uplo}{orient} {dtype}: "
+                  f"residual {res:.3g} over {bound:.3g}")
+            del X, Tw, Xw, op, r
+            ms = cuda_ms(lambda: ops.trsm(side, uplo, orient, "N", 1.5, T,
+                                          rhs), 3)
+            lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+                T if orient == "N" else T.conj().T, 1.5 * rhs,
+                upper=(uplo == "U") != (orient != "N"), left=side == "L"), 3)
+            flops = n ** 3 * (4 if dtype.is_complex else 1) / 1e9
+            print(f"[{tag}] trsm {side}{uplo}{orient}N {str(dtype)[6:]} "
+                  f"n = {n}, {n} right-hand sides: {ms:.3f} ms "
+                  f"({flops / ms:.2f} TFLOP/s), solve_triangular "
+                  f"{lib:.3f} ms; residual {res:.3g} (bound {bound:.3g})")
+            del T
+        del eye, rhs
+        torch.cuda.empty_cache()
+
+    # herk, trrk, symm, hemm, trmm against the same formula in float64
+    k = n // 2
+    a, c = rand((n, k), torch.float32), rand((n, n), torch.float32)
+    bk = rand((k, n), torch.float32)
+    s, z = rand((n, n), torch.float32), rand((n, n), torch.complex64)
+    zb = rand((n, n), torch.complex64)
+    ad, cd, bkd, sd = a.double(), c.double(), bk.double(), s.double()
+    hermitian = torch.tril(z.to(torch.complex128))
+    hermitian = hermitian + torch.tril(hermitian, -1).conj().T \
+        - 1j * torch.diag(torch.diagonal(hermitian).imag)
+    symmetric = torch.tril(sd) + torch.tril(sd, -1).T
+    cases = (
+        (f"herk L N {n}×{k}", torch.float32,
+         lambda: ops.herk("L", "N", 1.0, a),
+         lambda: torch.tril(ad @ ad.T), 2.0 * n * n * k),
+        (f"trrk L N N {n}×{k}", torch.float32,
+         lambda: ops.trrk("L", "N", "N", 1.5, a, bk, 0.5, c),
+         lambda: torch.tril(1.5 * (ad @ bkd) + 0.5 * cd)
+         + torch.triu(cd, 1), 2.0 * n * n * k),
+        ("symm L L", torch.float32,
+         lambda: ops.symm("L", "L", 1.0, s, c),
+         lambda: symmetric @ cd, 2.0 * n ** 3),
+        ("hemm L L", torch.complex64,
+         lambda: ops.hemm("L", "L", 1.0, z, zb),
+         lambda: hermitian @ zb.to(torch.complex128), 8.0 * n ** 3),
+        ("trmm L U N N", torch.float32,
+         lambda: ops.trmm("L", "U", "N", "N", 1.0, s, c),
+         lambda: torch.triu(sd) @ cd, 2.0 * n ** 3),
+    )
+    for what, dtype, run, formula, flops in cases:
+        got = run()
+        err = _fro(got, formula())
+        check(err <= 1e-5, f"{what}: rel. error {err:.3g}")
+        del got
+        ms = cuda_ms(run, 3)
+        print(f"[{tag}] {what} {str(dtype)[6:]} ({n}²): {ms:.3f} ms, "
+              f"{flops / 1e9 / ms:.2f} TFLOP/s; rel. error {err:.3g} against "
+              f"the formula in float64")
+    del a, c, bk, s, z, zb, ad, cd, bkd, sd, hermitian, symmetric
+    torch.cuda.empty_cache()
+
+    # level 1 and 2 on the 2×2 grid
+    x, y = rand((n, n), torch.float32), rand((n, n), torch.float32)
+    u, v = rand((n,), torch.float32), rand((n,), torch.float32)
+    X, Y = distribute(x, MC, MR, g4), distribute(y, MC, MR, g4)
+    xd, yd = x.double(), y.double()
+    nx, ny = float(torch.linalg.norm(xd)), float(torch.linalg.norm(yd))
+    cases = (
+        ("gemv N", lambda: ops.gemv("N", 2.0, X, u),
+         lambda: 2.0 * (xd @ u.double()), lambda: 2.0 * (x @ u), 4 * n * n),
+        ("ger", lambda: ops.ger(0.5, u, v, X),
+         lambda: xd + 0.5 * torch.outer(u.double(), v.double()),
+         lambda: x + 0.5 * torch.outer(u, v), 8 * n * n),
+        ("axpy", lambda: ops.axpy(2.0, X, Y), lambda: yd + 2.0 * xd,
+         lambda: y + 2.0 * x, 12 * n * n),
+        ("nrm2", lambda: ops.nrm2(X), None,
+         lambda: torch.linalg.vector_norm(x), 4 * n * n),
+        ("dot", lambda: ops.dot(X, Y), None,
+         lambda: torch.vdot(x.reshape(-1), y.reshape(-1)), 8 * n * n),
+    )
+    for what, run, formula, bare, nbytes in cases:
+        got = run()
+        if what == "nrm2":
+            err = abs(float(got) - nx) / nx
+        elif what == "dot":
+            err = abs(float(got) - float(torch.sum(xd * yd))) / (nx * ny)
+        else:
+            if hasattr(got, "grid"):
+                check(_on_card(got) and got.dist() == (MC, MR),
+                      f"{what}: the result's layout")
+                got = as_array(got)
+            err = _fro(got, formula())
+        check(err <= 1e-5, f"{what}: rel. error {err:.3g}")
+        ms, bare_ms = cuda_ms(run, 10), cuda_ms(bare, 10)
+        print(f"[{tag}] {what} float32 on the 2×2 grid ({n}²): {ms:.3f} ms, "
+              f"{nbytes / 1e6 / ms:.1f} GB/s of the operands, {ms / bare_ms:.2f}"
+              f"× the same torch op on the whole tensors ({bare_ms:.3f} ms); "
+              f"rel. error {err:.3g}")
+    del x, y, X, Y, xd, yd
+    torch.cuda.empty_cache()
+
+    # the 3-D GEMM on a 2×2×2 mesh over the card
+    m3 = n // 2
+    mesh = ops.make_3d_mesh([dev] * 8, depth=2)
+    for dtype, gate in gates.items():
+        a, b = rand((m3, m3), dtype), rand((m3, m3), dtype)
+        err = _fro(ops.gemm_3d(a, b, mesh), a.double() @ b.double())
+        check(err <= gate, f"gemm_3d {dtype}: rel. error {err:.3g}")
+        ms = cuda_ms(lambda: ops.gemm_3d(a, b, mesh), 10)
+        lib = cuda_ms(lambda: torch.matmul(a, b), 10)
+        print(f"[{tag}] gemm_3d {str(dtype)[6:]} {m3}³ on 2×2×2: "
+              f"{ms:.3f} ms, {2.0 * m3 ** 3 / 1e9 / ms:.2f} TFLOP/s, "
+              f"{ms / lib:.3f}× torch.matmul ({lib:.3f} ms); rel. error "
+              f"{err:.3g}")
+        del a, b
+
+    # queued updates against index_put_ with accumulation (integer values:
+    # every order of the sums is exact)
+    rng = np.random.default_rng(seed)
+    q = 100_000
+    ii, jj = rng.integers(0, n, q), rng.integers(0, n, q)
+    ii[: q // 10] = ii[q // 10: q // 5]           # repeats
+    jj[: q // 10] = jj[q // 10: q // 5]
+    vals = rng.integers(-8, 9, q).astype(np.float64)
+    base = torch.round(4 * rand((n, n), torch.float64))
+    M = distribute(base, MC, MR, g4)
+    t0 = time.perf_counter()
+    for i, j, val in zip(ii.tolist(), jj.tolist(), vals.tolist()):
+        M.queue_update(i, j, val)
+    t_queue = time.perf_counter() - t0
+    M2, t_drain = wall(M.process_queues)
+    idx = (torch.from_numpy(ii).to(dev), torch.from_numpy(jj).to(dev))
+    want = base.clone().index_put_(idx, torch.from_numpy(vals).to(dev),
+                                   accumulate=True)
+    check(torch.equal(as_array(M2), want),
+          "queued updates differ from index_put_(accumulate=True)")
+    for i, j in zip(ii[:1000].tolist(), jj[:1000].tolist()):
+        M2.queue_pull(i, j)
+    pulled = M2.process_pull_queue()
+    check(np.array_equal(pulled, want[idx[0][:1000], idx[1][:1000]].cpu()
+                         .numpy()), "queued pulls")
+    print(f"[{tag}] {q} queued updates (repeats included) on {n}² float64, "
+          f"2×2 grid: queued in {t_queue:.2f} s, drained in {t_drain:.3f} s, "
+          f"equal to index_put_(accumulate=True); 1000 pulls equal")
+    del base, M, M2, want
+    torch.cuda.empty_cache()
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -2267,7 +2574,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-18 and the JSON lines; phase 16's file goes into ``tmp``;
+    """Phases 3-19 and the JSON lines; phase 16's file goes into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -2332,7 +2639,9 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     print(f"[18 complex LDL] the phase took {time.perf_counter() - t0:.1f} s "
           f"(its two symbolic analyses included)")
 
-    print(f"[1-18] every phase, the kernels' build included, took "
+    phase_dense(args.seed)
+
+    print(f"[1-19] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",

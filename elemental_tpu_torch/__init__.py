@@ -19,13 +19,24 @@ Ported so far, each slice with its TPU kernels written by hand for Hopper:
   (``kernels/spmv.py``, ``csrc/stencil_spmv.cu``) and the CSR SpMV K2
   (``kernels/unstructured.py``, ``csrc/csr_spmv.cu``).
 
+* the dense core and the BLAS tier: ``Grid`` (an h×w array of torch
+  devices), ``DistMatrix`` in the reference's 14 distributions (one block
+  per grid position), redistribution, and ``ops``: level 1-3, the SUMMA
+  variants and the 3-D GEMM, all plain torch.
+
 Every public entry point takes an explicit ``device`` and ``dtype``, or
-builds a host plan that ``.to(device, dtype)`` moves.  The package imports
+builds a host plan that ``.to(device, dtype)`` moves; a grid names its
+devices, and the default grid is every CUDA device.  The package imports
 no JAX.
 """
 
-from . import (core, kernels, lapack, matrices, optimization, sparse,
+from . import core
+from .core import (CIRC, MC, MD, MR, STAR, VC, VR, Dist, DistMatrix, Grid,
+                   distribute, finalize, initialize)
+from . import (kernels, lapack, matrices, ops, optimization, sparse,
                sparse_direct)
 
-__all__ = ["core", "kernels", "lapack", "matrices", "optimization",
-           "sparse", "sparse_direct"]
+__all__ = ["CIRC", "MC", "MD", "MR", "STAR", "VC", "VR", "Dist",
+           "DistMatrix", "Grid", "core", "distribute", "finalize",
+           "initialize", "kernels", "lapack", "matrices", "ops",
+           "optimization", "sparse", "sparse_direct"]

@@ -1304,3 +1304,117 @@ def test_native_library_built_from_port_source(cuda):
     assert os.path.basename(lib._name).startswith("libelemental_native-")
     perm = native.rcm(np.array([0, 1, 3, 4]), np.array([1, 0, 2, 1]))
     assert sorted(perm.tolist()) == [0, 1, 2]
+
+
+# -- the dense core and the BLAS tier ------------------------------------------
+
+def _dense(shape, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    real = torch.randn(shape, generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        real = torch.complex(real, torch.randn(shape, generator=g,
+                                               dtype=torch.float64))
+    return real.to(device, dtype)
+
+
+def test_default_grid_is_the_card(cuda):
+    """``Grid()`` and ``distribute`` with no grid place every block on the
+    card."""
+    from elemental_tpu_torch.core import MC, MR, Grid, distribute
+    Grid.set_default(None)
+    g = Grid()
+    assert g.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in g.devices.ravel())
+    A = distribute(np.ones((64, 48)), MC, MR)
+    assert A.grid == g
+    assert all(A.local(i, j).is_cuda for i, j in g.positions())
+
+
+def test_redistribution_on_card_is_bit_exact(cuda):
+    from elemental_tpu_torch.core import (DIST_PAIRS, MC, MR, Grid,
+                                          as_array, distribute)
+    g = Grid(devices=[cuda] * 4, height=2)
+    a = _dense((256, 192), torch.float64, cuda)
+    A = distribute(a, MC, MR, g)
+    for pair in DIST_PAIRS:
+        B = A.redistribute(*pair)
+        assert all(B.local(i, j).is_cuda for i, j in g.positions())
+        assert torch.equal(as_array(B.redistribute(MC, MR)), a), pair
+
+
+def test_gemm_f32_has_no_tf32(cuda):
+    """ops.gemm in float32 is true float32 on the card even when the caller
+    allows TF32 (TF32 would read about 1e-3), and the caller's flag is
+    restored."""
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import MC, MR, Grid, distribute
+    g = Grid(devices=[cuda])
+    a = _dense((1024, 1024), torch.float32, cuda, 1)
+    b = _dense((1024, 1024), torch.float32, cuda, 2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        C = ops.gemm("N", "N", 1.0, distribute(a, MC, MR, g),
+                     distribute(b, MC, MR, g))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ref = a.double() @ b.double()
+    c = C.local(0, 0)
+    assert c.is_cuda
+    assert float(torch.linalg.norm(c.double() - ref)
+                 / torch.linalg.norm(ref)) <= 1e-5
+
+
+@pytest.mark.parametrize("alg", ["stationary_c", "stationary_a",
+                                 "stationary_b", "pipelined"])
+def test_summa_2x2_on_card_matches_1x1(cuda, alg):
+    """Each SUMMA variant on a 2×2 grid over the card equals the 1×1 grid's
+    product to 1e-5 in float32, on a shape the grid does not divide."""
+    import warnings
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import MC, MR, Grid, distribute
+    g1, g4 = Grid(devices=[cuda]), Grid(devices=[cuda] * 4, height=2)
+    a = _dense((515, 300), torch.float32, cuda, 3)
+    b = _dense((300, 257), torch.float32, cuda, 4)
+    c1 = ops.gemm("N", "N", 1.0, distribute(a, MC, MR, g1),
+                  distribute(b, MC, MR, g1)).local(0, 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        C4 = ops.gemm("N", "N", 1.0, distribute(a, MC, MR, g4),
+                      distribute(b, MC, MR, g4), alg=alg)
+    c4 = C4.to_numpy()
+    ref = c1.cpu().numpy()
+    assert np.abs(c4 - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64])
+def test_trsm_residual_on_card(cuda, dtype):
+    """The recursive trsm (n = 1024 > 256) on the card: ‖op(T)X − αB‖ /
+    (‖T‖‖X‖) under residual_bound."""
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import residual_bound
+    n = 1024
+    T = torch.tril(_dense((n, n), dtype, cuda, 5)) + n * torch.eye(
+        n, dtype=dtype, device=cuda)
+    B = _dense((n, 256), dtype, cuda, 6)
+    for side, uplo, orient in (("L", "L", "N"), ("R", "U", "C")):
+        tt = T if uplo == "L" else T.T.contiguous()
+        b = B if side == "L" else B.T.contiguous()
+        X = ops.trsm(side, uplo, orient, "N", 2.0, tt, b)
+        op = {"N": tt, "C": tt.conj().T}[orient]
+        r = (op @ X if side == "L" else X @ op) - 2.0 * b
+        rel = float(torch.linalg.norm(r) / (torch.linalg.norm(tt)
+                                            * torch.linalg.norm(X)))
+        assert rel < residual_bound(dtype, n), (side, rel)
+
+
+def test_gemm_3d_on_card(cuda):
+    from elemental_tpu_torch import ops
+    mesh = ops.make_3d_mesh([cuda] * 8, depth=2)
+    a = _dense((256, 512), torch.float64, cuda, 7)
+    b = _dense((512, 384), torch.float64, cuda, 8)
+    c = ops.gemm_3d(a, b, mesh)
+    assert c.is_cuda
+    assert float((c - a @ b).abs().max()) <= 1e-12 * float((a @ b).abs().max())

@@ -212,6 +212,14 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.sparse.io\n"
             "import elemental_tpu_torch.lapack.sparse_min\n"
             "import elemental_tpu_torch.sparse_direct.facade\n"
+            "import elemental_tpu_torch.core.grid\n"
+            "import elemental_tpu_torch.core.distmatrix\n"
+            "import elemental_tpu_torch.core.redistribute\n"
+            "import elemental_tpu_torch.core.environment\n"
+            "import elemental_tpu_torch.ops.level3\n"
+            "import elemental_tpu_torch.ops.summa\n"
+            "import elemental_tpu_torch.ops.gemm3d\n"
+            "import elemental_tpu_torch.examples.lp_direct_large\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'elemental_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
