@@ -131,6 +131,29 @@ Phases, each printing at least one line and each fatal when it fails:
     8192² on the 2×2 grid; ``gemm_3d`` on a 2×2×2 mesh over the card at
     4096³; 10⁵ queued updates on an 8192² matrix against ``index_put_(...,
     accumulate=True)``, and 1000 queued pulls.
+20. the sparse products and the distributed sparse containers (plain
+    torch, no kernel of the port): ``spgemm_plan`` of the unscaled 1024²
+    Laplacian with itself and ``galerkin_plan`` (A·D·Aᵀ, d from the seed,
+    the plan reused with a second d) of it and of the LP's
+    ``concat_fd_2d(224, 224)``, each numeric in float32 and float64 within
+    1e-5 / 1e-12 (relative, Frobenius) of scipy's product with scipy's
+    structure: ms (CUDA events, 10 launches), the bound (its index arrays,
+    gathered values and C at 3.35 TB/s), the host symbolic seconds, whether
+    5 calls gave the same bits, and ``torch.sparse.mm`` (cuSPARSE) of the
+    same CSR operands for A·A; then on a 2×2 grid over the card the
+    Laplacian's ``DistSparseMatrix``: ``matvec`` and ``matvec_transpose``
+    against ``CSRDevice.matvec`` (ms beside it and beside the 1×1 grid),
+    the transfer log's bytes per ``DistMultiVec`` matvec beside a full
+    gather of x, float32 CG to 1e-6 under phase 9's gate, ``dist_spgemm``
+    A·A and ``dist_galerkin`` of the LP's A equal to the 1×1 results within
+    the same tolerances, and ``DistMap.translate_device`` of 2²⁰ indices
+    equal to ``translate``.
+21. every driver of ``elemental_tpu_torch/examples`` in this process at its
+    default size with ``--device cuda`` (``lp_direct`` on phase 16's n1 =
+    16 MPS file, float64), each held to its own checks, with its seconds
+    and K1's launches across them; then ``entry()``'s forward (25 CG
+    iterations on the 64² Laplacian, float32) on the card against the
+    same forward on the CPU within 1e-4 relative in x and ‖r‖.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -144,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2551,6 +2575,320 @@ def phase_dense(seed: int) -> None:
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+SPARSE_N1 = 1024        # phase 20's Laplacian: SPARSE_N1² rows
+SPARSE_LP = 224         # phase 20's Galerkin: concat_fd_2d(SPARSE_LP, ...)
+
+
+def _frob(x, ref) -> float:
+    """‖x − ref‖_F / ‖ref‖_F of two host arrays, in float64."""
+    import numpy as np
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(np.asarray(x, np.float64) - ref)
+                 / np.linalg.norm(ref))
+
+
+SPARSE_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _same_structure(M, ref) -> bool:
+    """A SparseMatrix's CSR structure equals a sorted scipy matrix's."""
+    import numpy as np
+    return (M.shape == ref.shape and np.array_equal(M.rowptr, ref.indptr)
+            and np.array_equal(M.colind, ref.indices))
+
+
+def sparse_product_cases(tag: str, label: str, plan, operands, ref,
+                         t_sym: float, lib) -> dict:
+    """One fixed-structure product's numeric on the card in float32 and
+    float64: ``plan`` (on the card; ``plan.c_idx`` its multiplications'
+    destinations) and ``operands(dtype)`` → the numeric's arguments;
+    ``ref`` the scipy product (its values the gate, within SPARSE_TOL
+    relative, Frobenius); ``lib(dtype)`` → a function that runs the one
+    PyTorch call computing the same product, or None.  Prints ms (CUDA
+    events, 10 launches), the bound and whether 5 calls gave the same bits;
+    returns {dtype name: {"ms", "lib_ms", "vals" (host)}}."""
+    import torch
+    idx_arrays = [v for v in vars(plan).values()
+                  if isinstance(v, torch.Tensor)]
+    nmul = int(plan.c_idx.numel())
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        args = operands(dtype)
+        vals = plan.numeric(*args)
+        host = vals.cpu().numpy()
+        err = _frob(host, ref.data)
+        check(err <= SPARSE_TOL[name], f"{label} {name}: {err:.3e} from "
+              f"scipy (bound {SPARSE_TOL[name]:g})")
+        same = all(torch.equal(plan.numeric(*args), vals) for _ in range(5))
+        ms = cuda_ms(lambda: plan.numeric(*args), 10)
+        # each index array read once, one value gathered per array but the
+        # destinations', C written once
+        isz = vals.element_size()
+        nbytes = (sum(t.numel() * t.element_size() for t in idx_arrays)
+                  + nmul * isz * (len(idx_arrays) - 1) + plan.c_nnz * isz)
+        bms, _ = bound(nbytes)
+        lib_ms = cuda_ms(lib(dtype), 10) if lib is not None else None
+        out[name] = {"ms": ms, "lib_ms": lib_ms, "vals": host}
+        lib_txt = (f"torch.sparse.mm (cuSPARSE, its symbolic phase again "
+                   f"every call) {lib_ms:.3f} ms" if lib_ms is not None
+                   else "no one PyTorch call computes it")
+        print(f"[{tag}] {label} {name}: numeric {ms:.3f} ms (10 launches, "
+              f"{nmul:,} multiplications into {plan.c_nnz:,} nonzeros), "
+              f"bound {bms:.4f} ms ({nbytes / 1e6:.0f} MB: index arrays, "
+              f"gathered values, C), {bms / ms:.2f} of its speed; "
+              f"{lib_txt}; host symbolic {t_sym:.2f} s; {err:.2e} from "
+              f"scipy (Frobenius, bound {SPARSE_TOL[name]:g}); 5 calls "
+              f"bit-equal: {same}")
+    return out
+
+
+def phase_sparse_products(seed: int) -> None:
+    """20: the sparse products and the distributed sparse containers at
+    full size (see the module docstring).  Every gate is fatal."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.lapack import cg
+    from elemental_tpu_torch.matrices import concat_fd_2d, sparse_laplacian_2d
+    from elemental_tpu_torch.sparse import (DistMap, DistMultiVec,
+                                            DistSparseMatrix, dist_galerkin,
+                                            dist_spgemm_plan, galerkin_plan,
+                                            spgemm_plan)
+    from elemental_tpu_torch.utils import count_transfers
+    tag = "20 sparse products"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    cuda = torch.device("cuda")
+    A = sparse_laplacian_2d(SPARSE_N1, SPARSE_N1, scaled=False)
+    K = concat_fd_2d(SPARSE_LP, SPARSE_LP)
+    N = A.height
+    print(f"[{tag}] the unscaled {SPARSE_N1}² Laplacian: N = {N:,}, nnz = "
+          f"{A.nnz:,}; the LP's concat_fd_2d({SPARSE_LP}, {SPARSE_LP}): "
+          f"{K.height:,} × {K.width:,}, nnz = {K.nnz:,}")
+
+    def on(M, dtype):
+        return torch.from_numpy(M.vals).to(cuda, dtype)
+
+    def csr(M, dtype):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(M.rowptr), torch.from_numpy(M.colind),
+            torch.from_numpy(M.vals).to(dtype), M.shape).to(cuda)
+
+    # SpGEMM A·A against scipy, beside torch.sparse.mm
+    plan, t_sym = wall(lambda: spgemm_plan(A, A))
+    As = A.to_scipy()
+    ref = (As @ As).tocsr()
+    ref.sort_indices()
+    nmul = int(plan.a_idx.numel())
+    check(_same_structure(plan.c_struct, ref), "A·A: C's structure is not "
+          "scipy's")
+    print(f"[{tag}] spgemm A·A: {nmul:,} multiplications, {plan.c_nnz:,} "
+          f"nonzeros, structure equal to scipy's")
+    pd = plan.to(cuda)
+
+    def lib_mm(dtype):
+        S = csr(A, dtype)
+        return lambda: torch.sparse.mm(S, S)
+
+    for dtype in (torch.float32, torch.float64):
+        L = torch.sparse.mm(csr(A, dtype), csr(A, dtype))
+        x = torch.from_numpy(rng.standard_normal(N)).to(cuda, dtype)
+        mine = torch.sparse_csr_tensor(
+            torch.from_numpy(ref.indptr).to(cuda),
+            torch.from_numpy(ref.indices).to(cuda),
+            pd.numeric(on(A, dtype), on(A, dtype)), ref.shape)
+        err = _frob((L @ x).cpu().numpy(), (mine @ x).cpu().numpy())
+        print(f"[{tag}] torch.sparse.mm {str(dtype)[6:]}: {L.values().numel():,}"
+              f" nonzeros; (its C)·x against (ours)·x: {err:.2e}")
+        del L, mine
+    spg = sparse_product_cases(tag, "spgemm A·A", pd,
+                               lambda dt: (on(A, dt), on(A, dt)), ref, t_sym,
+                               lib_mm)
+    del pd
+
+    # Galerkin A·D·Aᵀ on both matrices, the plan reused with a second d
+    for label, M in (("Laplacian", A), ("LP's A", K)):
+        gp, t_sym = wall(lambda: galerkin_plan(M))
+        Ms = M.to_scipy()
+        d1, d2 = (rng.uniform(0.5, 2.0, M.width) for _ in range(2))
+        gpd = gp.to(cuda)
+        for k, d in enumerate((d1, d2)):
+            gref = (Ms @ sps.diags(d) @ Ms.T).tocsr()
+            gref.sort_indices()
+            check(_same_structure(gp.c_struct, gref),
+                  f"Galerkin {label}: C's structure is not scipy's")
+            sparse_product_cases(
+                tag, f"Galerkin A·D·Aᵀ, {label}, d{k + 1}", gpd,
+                lambda dt: (on(M, dt), torch.from_numpy(d).to(cuda, dt)),
+                gref, t_sym, None)
+        del gpd
+
+    # the 2×2 grid over the card
+    g4 = Grid(devices=[cuda] * 4, height=2)
+    g1 = Grid(devices=[cuda])
+    dA, t_plan = wall(lambda: DistSparseMatrix.from_sparse(
+        A, g4, dtype=torch.float32))
+    check(all(t.is_cuda for t in dA.lvals), "DistSparseMatrix off the card")
+    dA1 = DistSparseMatrix.from_sparse(A, g1, dtype=torch.float32)
+    dev = A.device_csr(device=cuda, dtype=torch.float32)
+    x = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(cuda)
+    want = dev.matvec(x)
+    for name, got in (("matvec", dA.matvec(x)),
+                      ("matvec_transpose", dA.matvec_transpose(x))):
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 1e-5, f"2×2 {name}: {err:.2e} from CSRDevice")
+    xv = DistMultiVec.from_array(x, g4)
+    with count_transfers() as log:
+        yv = dA.matvec(xv)
+    err = float((yv.assemble() - want).abs().max() / want.abs().max())
+    check(err <= 1e-5 and not log.of("all-gather"),
+          f"2×2 DistMultiVec matvec: {err:.2e}, gathers "
+          f"{len(log.of('all-gather'))}")
+    full = N * 4 * g4.size
+    t_csr = cuda_ms(lambda: dev.matvec(x), 20)
+    t_mv = cuda_ms(lambda: dA.matvec(x), 20)
+    t_mt = cuda_ms(lambda: dA.matvec_transpose(x), 20)
+    t_mvd = cuda_ms(lambda: dA.matvec(xv), 20)
+    t_1 = cuda_ms(lambda: dA1.matvec(x), 20)
+    print(f"[{tag}] DistSparseMatrix of the Laplacian on 2×2 (host plan "
+          f"{t_plan:.2f} s, halo H = {dA.halo}): matvec {t_mv:.4f} ms, "
+          f"matvec_transpose {t_mt:.4f} ms, on DistMultiVec blocks "
+          f"{t_mvd:.4f} ms; on 1×1 {t_1:.4f} ms; CSRDevice.matvec "
+          f"{t_csr:.4f} ms; ratio 2×2/CSRDevice {t_mv / t_csr:.2f} "
+          f"(blocks {t_mvd / t_csr:.2f}); float32, 20 launches each")
+    print(f"[{tag}] transfers per DistMultiVec matvec: {log.bytes():,} bytes "
+          f"in {len(log)} all-to-all records; a full gather of x to every "
+          f"position: {full:,} bytes ({log.bytes() / full:.2e} of it)")
+
+    b = rng.standard_normal(N).astype(np.float32)
+    res, t_cg = wall(lambda: cg(dA.matvec, torch.from_numpy(b).to(cuda),
+                                tol=1e-6, max_iters=20000))
+    xs = res.x.cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(As @ xs - b) / np.linalg.norm(b))
+    check(np.all(np.isfinite(xs)) and rel < CG_RESIDUAL_BOUND,
+          f"2×2 CG: host residual {rel:.3e}")
+    print(f"[{tag}] CG on the 2×2 DistSparseMatrix, float32, tol 1e-6: "
+          f"{res.iterations} iterations in {t_cg:.2f} s "
+          f"({t_cg / res.iterations * 1e3:.4f} ms/iteration); host-verified "
+          f"(float64) {rel:.3e} < {CG_RESIDUAL_BOUND:g}")
+    del dA1, dev
+
+    # dist_spgemm A·A and dist_galerkin of the LP's A against 1×1
+    d64 = DistSparseMatrix.from_sparse(A, g4, dtype=torch.float64)
+    dp, t_dsym = wall(lambda: dist_spgemm_plan(d64, d64))
+    check(np.array_equal(dp.c_host.colind, ref.indices),
+          "dist_spgemm: C's structure")
+    for dtype, dX in ((torch.float32, dA), (torch.float64, d64)):
+        name = str(dtype)[6:]
+        with count_transfers() as log:
+            lv = dp.numeric(dX.lvals, dX.lvals)
+        flat = torch.cat([v.cpu() for v in lv]).numpy()[
+            dp.c_template.val_slot]
+        err = _frob(flat, spg[name]["vals"])
+        check(err <= SPARSE_TOL[name], f"dist_spgemm {name}: {err:.2e} from "
+              f"the 1×1 spgemm")
+        ms = cuda_ms(lambda: dp.numeric(dX.lvals, dX.lvals), 10)
+        print(f"[{tag}] dist_spgemm A·A on 2×2, {name}: numeric {ms:.3f} ms "
+              f"(1×1 spgemm {spg[name]['ms']:.3f}); {err:.2e} from the 1×1 "
+              f"result; host symbolic {t_dsym:.2f} s; halo H = {dp.halo}, "
+              f"{log.bytes():,} bytes across positions, no all-gather: "
+              f"{not log.of('all-gather')}")
+    del d64, dp, dA
+    d = rng.uniform(0.5, 2.0, K.width)
+    gK = galerkin_plan(K)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        dK = DistSparseMatrix.from_sparse(K, g4, dtype=dtype)
+        dC, t_dg = wall(lambda: dist_galerkin(dK, d))
+        one = gK.numeric(torch.from_numpy(K.vals).to(dtype),
+                         torch.from_numpy(d).to(dtype)).numpy()
+        check(np.array_equal(dC.host.colind, gK.c_struct.colind),
+              "dist_galerkin: C's structure")
+        err = _frob(dC.host.vals, one)
+        check(err <= SPARSE_TOL[name], f"dist_galerkin {name}: {err:.2e}")
+        print(f"[{tag}] dist_galerkin of the LP's A on 2×2, {name}: "
+              f"{t_dg:.2f} s (host plan included), {err:.2e} from the 1×1 "
+              f"Galerkin product")
+
+    # DistMap over the 2×2 grid
+    n = 1 << 20
+    perm = rng.permutation(n)
+    dm = DistMap(perm).to(g4)
+    idx = torch.from_numpy(rng.integers(0, n, n))
+    got, t_map = wall(lambda: dm.translate_device(idx))
+    check(np.array_equal(got.cpu().numpy(), perm[idx.numpy()]),
+          "DistMap.translate_device differs from translate")
+    print(f"[{tag}] DistMap.translate_device of {n:,} indices over a "
+          f"permutation of {n:,} on 2×2: equal to translate, {t_map:.3f} s")
+    torch.cuda.empty_cache()
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 21: every driver of elemental_tpu_torch/examples that needs no file
+# (lp_direct gets phase 16's small MPS file)
+DRIVERS = ["bp", "bp_complex", "bp_dense", "bpdn", "bpdn_dense", "cp",
+           "cp_dense", "ds", "ds_dense", "en", "en_dense", "lav",
+           "lav_dense", "long_only_portfolio", "lp_affine",
+           "lp_affine_dense", "lp_direct_dense", "nnls", "nnls_dense",
+           "qp_affine_dense", "qp_affine_ex", "qp_direct_dense",
+           "qp_direct_ex", "rls", "rnnls_ex", "soc_atom", "soc_members",
+           "socp_trivial", "svm", "svm_dense", "tv",
+           "sequential_linear_solve", "sequential_lse",
+           "dynamic_reg_counter", "sparse_multiply", "multiply_ex",
+           "remote_dist_sparse", "lp_direct_large", "cg_laplacian",
+           "helmholtz_solve", "sequential_least_squares", "different_grids",
+           "remote_update"]
+
+
+def phase_drivers(mps_path: str) -> None:
+    """21: every driver in-process at its default size with ``--device
+    cuda`` (its own checks are the gates), ``lp_direct`` on ``mps_path``;
+    then ``entry()``'s forward on the card against the CPU."""
+    import importlib
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.entry import entry
+    from elemental_tpu_torch.kernels import extend_add as ea
+    tag = "21 drivers"
+    t_phase = time.perf_counter()
+    before = ea.extend_add.launches
+    runs = [(name, []) for name in DRIVERS]
+    runs.append(("lp_direct", ["--mps", mps_path, "--dtype", "float64"]))
+    seconds = {}
+    saved = sys.argv
+    try:
+        for name, extra in runs:
+            sys.argv = [name, "--device", "cuda", *extra]
+            mod = importlib.import_module(
+                f"elemental_tpu_torch.examples.{name}")
+            out, seconds[name] = wall(mod.main)
+            if name == "lp_direct":
+                check(out[0].converged, "lp_direct on phase 16's file did "
+                      "not converge")
+    finally:
+        sys.argv = saved
+    k1 = ea.extend_add.launches - before
+    check(k1 > 0, "no driver launched K1")
+    print(f"[{tag}] {len(runs)} drivers passed their own checks on the card "
+          f"in {sum(seconds.values()):.1f} s, K1 launched {k1} times: "
+          + ", ".join(f"{n} {t:.2f} s" for n, t in seconds.items()))
+
+    fwd, args = entry()
+    check(all(t.is_cuda for t in args), "entry(): arguments off the card")
+    (x, r), t_fwd = wall(lambda: fwd(*args))
+    cx, cr = fwd(*(t.cpu() for t in args))
+    ex = float((x.cpu() - cx).abs().max() / cx.abs().max())
+    er = abs(float(r) - float(cr)) / float(cr)
+    check(ex <= 1e-4 and er <= 1e-4, f"entry(): card vs CPU x {ex:.2e}, "
+          f"‖r‖ {er:.2e}")
+    print(f"[{tag}] entry(): 25 CG iterations on the 64² Laplacian's ELL "
+          f"form, float32, {t_fwd * 1e3:.1f} ms on the card; ‖r‖ "
+          f"{float(r):.6e}, against the CPU x {ex:.2e}, ‖r‖ {er:.2e}")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -2574,7 +2912,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-19 and the JSON lines; phase 16's file goes into ``tmp``;
+    """Phases 3-21 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -2640,8 +2978,10 @@ def run_phases(args, tmp: str, t_start: float) -> int:
           f"(its two symbolic analyses included)")
 
     phase_dense(args.seed)
+    phase_sparse_products(args.seed)
+    phase_drivers(os.path.join(tmp, "gen16.mps"))
 
-    print(f"[1-19] every phase, the kernels' build included, took "
+    print(f"[1-21] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",

@@ -13,7 +13,9 @@ grid does not divide is replicated, with the JAX package's
 Redistribution copies blocks between positions (``.to(device)`` where the
 devices differ); a block that lies inside one source block on the same
 device is a view of it.  Replicated blocks of positions that share a device
-share storage.
+share storage.  An open :func:`~..utils.transfers.count_transfers` log
+records each target position's copies from other positions (see
+:meth:`DistMatrix._relayout`).
 
 Operations that the JAX package leaves to GSPMD (level 1 and 2, most of
 level 3) assemble the global tensor on the grid's first device
@@ -35,6 +37,7 @@ import torch
 from .dist import (MC, MR, Dist, Spec, partition_spec, transpose_pair)
 from .grid import Grid
 from .policy import effective_dtype
+from ..utils import transfers
 
 Range = Tuple[int, int]
 
@@ -185,10 +188,12 @@ class DistMatrix:
         return owners
 
     def _gather(self, ranges: Tuple[Range, ...], device: torch.device,
-                owners=None) -> torch.Tensor:
+                owners=None, dst=None, sources=None) -> torch.Tensor:
         """The global sub-block ``ranges`` on ``device``, copied from the
-        blocks that hold it (from a position on ``device`` where one
-        does); a view where one block on ``device`` holds it all."""
+        blocks that hold it (from position ``dst`` itself where it holds
+        one, else from a position on ``device`` where one does); a view
+        where one block on ``device`` holds it all.  Each piece and its
+        source position are appended to the list ``sources`` if given."""
         if any(lo == hi for lo, hi in ranges):
             return torch.empty(tuple(hi - lo for lo, hi in ranges),
                                dtype=self.dtype, device=device)
@@ -200,11 +205,15 @@ class DistMatrix:
 
         def piece(key):
             held = owners[key]
-            i, j = next((p for p in held if self.grid.device(*p) == device),
-                        held[0])
+            i, j = (dst if dst in held else
+                    next((p for p in held if self.grid.device(*p) == device),
+                         held[0]))
             local = tuple((max(lo, k * c) - k * c, min(hi, (k + 1) * c) - k * c)
                           for (lo, hi), c, k in zip(ranges, chunks, key))
-            return _slice(self._blocks[i][j], local).to(device)
+            src = _slice(self._blocks[i][j], local)
+            if sources is not None:
+                sources.append((src, (i, j)))
+            return src.to(device)
 
         if len(ranges) != 2:
             return piece(tuple(0 for _ in ranges))
@@ -216,19 +225,36 @@ class DistMatrix:
     def _relayout(self, grid: Grid, coldist: Dist, rowdist: Dist,
                   warn: bool) -> "DistMatrix":
         """This matrix's blocks copied into the ``[coldist, rowdist]``
-        layout of ``grid``."""
+        layout of ``grid``.
+
+        The transfer log gets one record a target position that copies
+        from other positions: an ``all-gather`` where its block is larger
+        than a source block, a ``collective-permute`` where it is one other
+        position's block, an ``all-to-all`` otherwise.  Between two grids
+        positions are told apart by their grid's identity as well."""
         spec = _feasible_spec(self.shape, partition_spec(coldist, rowdist),
                               grid, warn)
         owners = self._owners()
         memo: Dict[tuple, torch.Tensor] = {}
         blocks = [[None] * grid.width for _ in range(grid.height)]
+        here = (lambda p: p) if grid is self.grid else \
+            (lambda p: (id(grid), p))
+        src_numel = int(np.prod([hi - lo for lo, hi in self.ranges(0, 0)]))
         for i, j in grid.positions():
             dev = grid.device(i, j)
             ranges = _block_ranges(self.shape, spec, grid, i, j)
             key = (dev, ranges)
-            if key not in memo:
-                memo[key] = self._gather(ranges, dev, owners)
+            sources = [] if transfers.recording else None
+            if key not in memo or sources is not None:
+                memo[key] = self._gather(ranges, dev, owners, here((i, j)),
+                                         sources)
             blocks[i][j] = memo[key]
+            if sources:
+                out = blocks[i][j]
+                kind = ("all-gather" if out.numel() > src_numel else
+                        "collective-permute" if len(sources) == 1 else
+                        "all-to-all")
+                transfers.record(kind, out, sources, here((i, j)))
         return DistMatrix(blocks, self.shape, coldist, rowdist, grid,
                           self.root)
 

@@ -11,6 +11,13 @@ target block lies inside one source block on the same device.
 
 ``contract``/``axpy_contract`` sum partial contributions stacked along an
 explicit axis of a tensor, as in the JAX package.
+
+Every copy between positions is recorded in an open
+:func:`~..utils.transfers.count_transfers` log: the block copies of a
+redistribution as :meth:`DistMatrix._relayout` classes them (``all_gather``
+as ``all-gather``), and a contraction as the reduction of its partials, the
+k-th held by the k-th position in the flat (VC) order: ``all-reduce`` where
+the result is replicated, ``reduce-scatter`` where it is cut.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from .dist import Dist
 from .distmatrix import DistMatrix, as_array
 from .grid import Grid
+from ..utils import transfers
 
 
 def translate(A: DistMatrix, coldist: Dist, rowdist: Dist) -> DistMatrix:
@@ -51,23 +59,44 @@ def transpose_dist(A: DistMatrix) -> DistMatrix:
     return A.redistribute(A.rowdist, A.coldist)
 
 
+def _record_reduction(out: DistMatrix, parts: int) -> None:
+    """Each position's block of ``out`` as the sum of ``parts`` partials,
+    the k-th held by flat position k mod p."""
+    grid = out.grid
+    p, w = grid.size, grid.width
+    whole = all(hi - lo == n for (lo, hi), n in zip(out.ranges(0, 0),
+                                                     out.shape))
+    kind = "all-reduce" if whole else "reduce-scatter"
+    for i, j in grid.positions():
+        blk = out.local(i, j)
+        transfers.record(kind, blk, [(blk, k % p) for k in range(parts)],
+                         i * w + j)
+
+
 def contract(partial: torch.Tensor, grid: Grid, coldist: Dist, rowdist: Dist,
              axis: int = 0) -> DistMatrix:
     """Sum partial contributions stacked along ``axis`` and lay the result out
     as [coldist,rowdist] (reference ``Contract.hpp:75-101``)."""
-    data = torch.sum(torch.as_tensor(partial), dim=axis)
-    return DistMatrix._from_whole(data, coldist, rowdist, grid, 0, warn=True)
+    partial = torch.as_tensor(partial)
+    data = torch.sum(partial, dim=axis)
+    out = DistMatrix._from_whole(data, coldist, rowdist, grid, 0, warn=True)
+    if transfers.recording:
+        _record_reduction(out, partial.shape[axis])
+    return out
 
 
 def axpy_contract(alpha, partial: torch.Tensor, C: DistMatrix,
                   axis: int = 0) -> DistMatrix:
     """C += α·Σ_partial (reference ``AxpyContract.hpp``: the SUMMA reduction
     step)."""
+    partial = torch.as_tensor(partial)
     c = as_array(C)
-    data = c + alpha * torch.sum(torch.as_tensor(partial).to(c.device),
-                                 dim=axis)
-    return DistMatrix._from_whole(data, C.coldist, C.rowdist, C.grid, C.root,
-                                  warn=True)
+    data = c + alpha * torch.sum(partial.to(c.device), dim=axis)
+    out = DistMatrix._from_whole(data, C.coldist, C.rowdist, C.grid, C.root,
+                                 warn=True)
+    if transfers.recording:
+        _record_reduction(out, partial.shape[axis])
+    return out
 
 
 def translate_between_grids(A: DistMatrix, grid: Grid,

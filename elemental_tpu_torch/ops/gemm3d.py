@@ -7,7 +7,9 @@ over ('d', 'mr') and B's rows over ('d', 'mc'), as in the JAX package; each
 depth slice runs a stationary-C SUMMA on its (mc, mr) grid over its share
 of k, and the depth slices' products are summed in depth order (the JAX
 package's ``psum`` over 'd').  Like every product of the port it runs
-under the library's matmul precision (TF32 off by default)."""
+under the library's matmul precision (TF32 off by default).  An open
+:func:`~..utils.transfers.count_transfers` log records the panel gathers
+as ``all-gather`` and the depth sum as ``all-reduce``."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.grid import _grid_height, cuda_devices
+from ..utils import transfers
 from .level3 import with_precision
 
 
@@ -90,15 +93,25 @@ def gemm_3d(A: torch.Tensor, B: torch.Tensor, mesh: Mesh3D) -> torch.Tensor:
         row = []
         for j in range(w):
             acc = None
+            parts = []
             for dd in range(d):
                 dev = mesh.devices[dd, i, j]
                 # per-depth stationary-C: gather along 'mr' and 'mc'
-                a_row = torch.cat([a_blk(dd, i, jj, mesh.devices[dd, i, jj])
-                                   .to(dev) for jj in range(w)], dim=1)
-                b_col = torch.cat([b_blk(dd, ii, j, mesh.devices[dd, ii, j])
-                                   .to(dev) for ii in range(h)], dim=0)
-                part = torch.matmul(a_row, b_col).to(first)
+                a_src = [(a_blk(dd, i, jj, mesh.devices[dd, i, jj]),
+                          (dd, i, jj)) for jj in range(w)]
+                b_src = [(b_blk(dd, ii, j, mesh.devices[dd, ii, j]),
+                          (dd, ii, j)) for ii in range(h)]
+                a_row = torch.cat([t.to(dev) for t, _ in a_src], dim=1)
+                b_col = torch.cat([t.to(dev) for t, _ in b_src], dim=0)
+                part = torch.matmul(a_row, b_col)
+                if transfers.recording:
+                    transfers.record("all-gather", a_row, a_src, (dd, i, j))
+                    transfers.record("all-gather", b_col, b_src, (dd, i, j))
+                    parts.append((part, (dd, i, j)))
+                part = part.to(first)
                 acc = part if acc is None else acc + part
+            if transfers.recording:
+                transfers.record("all-reduce", acc, parts, (0, i, j))
             row.append(acc)
         rows.append(torch.cat(row, dim=1))
     return torch.cat(rows, dim=0)

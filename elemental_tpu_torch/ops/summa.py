@@ -22,6 +22,10 @@ reads the block the ring has brought (``src = (my + t) % w``), and the
 accumulation order is the JAX package's (``acc = acc + a_cur @ b_slice``),
 so float64 results agree with it to rounding.  Blocks move with
 ``.to(device)`` where two positions' devices differ.
+
+Every copy between positions is recorded in an open
+:func:`~..utils.transfers.count_transfers` log: the panel gathers as
+``all-gather``, the ring's reads as ``collective-permute``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from ..core.distmatrix import _cut
 from ..core.grid import Grid
+from ..utils import transfers
 
 Blocks = List[List[torch.Tensor]]
 
@@ -52,19 +57,46 @@ def gemm_xla(A: torch.Tensor, B: torch.Tensor, grid: Grid) -> torch.Tensor:
     return torch.matmul(A, B)
 
 
-def _gather_mr(blocks: Blocks, i: int, dev) -> torch.Tensor:
-    """all_gather along 'mr' (tiled, axis 1): grid row i's blocks."""
-    return torch.cat([b.to(dev) for b in blocks[i]], dim=1)
+def _gather_mr(blocks: Blocks, i: int, j: int, dev) -> torch.Tensor:
+    """Grid row i's blocks side by side at position (i, j): that
+    position's share of the JAX package's ``all_gather`` along 'mr' (tiled,
+    axis 1).  The transfer log records one ``all-gather`` of the (m/h, k)
+    panel, with the bytes of the row's other w − 1 blocks."""
+    out = torch.cat([b.to(dev) for b in blocks[i]], dim=1)
+    if transfers.recording:
+        transfers.record("all-gather", out,
+                         [(b, (i, jj)) for jj, b in enumerate(blocks[i])],
+                         (i, j))
+    return out
 
 
-def _gather_mc(blocks: Blocks, j: int, dev) -> torch.Tensor:
-    """all_gather along 'mc' (tiled, axis 0): grid column j's blocks."""
-    return torch.cat([row[j].to(dev) for row in blocks], dim=0)
+def _gather_mc(blocks: Blocks, i: int, j: int, dev) -> torch.Tensor:
+    """Grid column j's blocks stacked at position (i, j): that position's
+    share of the ``all_gather`` along 'mc' (tiled, axis 0).  The transfer
+    log records one ``all-gather`` of the (k, n/w) panel, with the bytes of
+    the column's other h − 1 blocks."""
+    out = torch.cat([row[j].to(dev) for row in blocks], dim=0)
+    if transfers.recording:
+        transfers.record("all-gather", out,
+                         [(row[j], (ii, j)) for ii, row in enumerate(blocks)],
+                         (i, j))
+    return out
+
+
+def _ring_read(blocks: Blocks, src, dst, dev) -> torch.Tensor:
+    """The block of position ``src`` at position ``dst``, brought by the
+    ring's ``ppermute``: a ``collective-permute`` in the transfer log
+    unless ``src`` is ``dst``."""
+    blk = blocks[src[0]][src[1]]
+    out = blk.to(dev)
+    if transfers.recording:
+        transfers.record("collective-permute", out, [(blk, src)], dst)
+    return out
 
 
 def _stationary_c_local(a: Blocks, b: Blocks, i: int, j: int, dev):
-    a_row = _gather_mr(a, i, dev)          # (m/h, k)
-    b_col = _gather_mc(b, j, dev)          # (k, n/w)
+    a_row = _gather_mr(a, i, j, dev)       # (m/h, k)
+    b_col = _gather_mc(b, i, j, dev)       # (k, n/w)
     return torch.matmul(a_row, b_col)
 
 
@@ -74,13 +106,13 @@ def _ring_over_a(a: Blocks, b: Blocks, i: int, j: int, dev):
     gathered, its (m/h, k/w) blocks ring along 'mr' (step t holds the block
     of position (i, (j + t) % w)) against B gathered along 'mc'."""
     w = len(a[0])
-    b_col = _gather_mc(b, j, dev)          # (k, n/w)
+    b_col = _gather_mc(b, i, j, dev)       # (k, n/w)
     k_w = a[i][j].shape[1]
     acc = torch.zeros((a[i][j].shape[0], b_col.shape[1]),
                       dtype=a[i][j].dtype, device=dev)
     for t in range(w):
         src = (j + t) % w
-        a_cur = a[i][src].to(dev)
+        a_cur = _ring_read(a, (i, src), (i, j), dev)
         b_slice = b_col[src * k_w:(src + 1) * k_w]
         acc = acc + torch.matmul(a_cur, b_slice)
     return acc
@@ -92,13 +124,13 @@ def _stationary_b_local(a: Blocks, b: Blocks, i: int, j: int, dev):
     the block of position ((i + t) % h, j)) against A gathered along
     'mr'."""
     h = len(a)
-    a_row = _gather_mr(a, i, dev)          # (m/h, k)
+    a_row = _gather_mr(a, i, j, dev)       # (m/h, k)
     k_h = b[i][j].shape[0]
     acc = torch.zeros((a[i][j].shape[0], b[i][j].shape[1]),
                       dtype=a[i][j].dtype, device=dev)
     for t in range(h):
         src = (i + t) % h
-        b_cur = b[src][j].to(dev)
+        b_cur = _ring_read(b, (src, j), (i, j), dev)
         a_slice = a_row[:, src * k_h:(src + 1) * k_h]
         acc = acc + torch.matmul(a_slice, b_cur)
     return acc

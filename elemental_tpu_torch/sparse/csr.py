@@ -228,6 +228,9 @@ class ELLMatrix:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sum(self.vals * x[self.cols], dim=1)
 
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("hw,hwk->hk", self.vals, X[self.cols])
+
 
 @dataclasses.dataclass
 class CSRDevice:
@@ -288,6 +291,12 @@ class Graph:
 
     def neighbors(self, i: int) -> np.ndarray:
         return self.colind[self.rowptr[i]:self.rowptr[i + 1]]
+
+    def to_sparse(self, dtype=np.float64) -> SparseMatrix:
+        """The pattern as a matrix of ones."""
+        return SparseMatrix(self.num_sources, self.num_targets,
+                            self.rowptr.copy(), self.colind.copy(),
+                            np.ones(self.num_edges, dtype))
 
     def symmetrize(self) -> "Graph":
         rows = np.repeat(np.arange(self.num_sources),

@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA card (and nvcc): K1-K7 and the
 stream gather against their plain versions on the card, the wrappers'
 refusals, and the factor, the LP, the SpMV planner (the bridged tier
-included) and CG on the card against the same code on the CPU.  Every test
+included), CG, the dense core, the sparse products, a distributed matvec
+and a conic driver on the card against the same code on the CPU or the
+library call.  Every test
 is marked ``cuda``
 and skips without a card.  The file imports no JAX, so it also runs where
 JAX is not installed:
@@ -1418,3 +1420,79 @@ def test_gemm_3d_on_card(cuda):
     c = ops.gemm_3d(a, b, mesh)
     assert c.is_cuda
     assert float((c - a @ b).abs().max()) <= 1e-12 * float((a @ b).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spgemm_on_card_matches_torch_sparse_mm(cuda, dtype):
+    """SpGEMM's plan on the card against cuSPARSE (``torch.sparse.mm``) on
+    the same CSR operands: C's structure equal to scipy's, values within
+    the dtype's tolerance (``index_add_`` sums with atomics), and the
+    Galerkin plan against A·diag(d)·Aᵀ."""
+    import scipy.sparse as sps
+    from elemental_tpu_torch.sparse import (galerkin_plan, spgemm,
+                                            spgemm_plan, syrk_sparse)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    A = sparse_laplacian_2d(24, 24, scaled=False)
+    plan = spgemm_plan(A, A).to(cuda)
+    vals = torch.from_numpy(A.vals).to(cuda, dtype)
+    c = plan.numeric(vals, vals)
+    assert c.is_cuda and c.dtype == dtype
+    ref = (A.to_scipy() @ A.to_scipy()).tocsr()
+    ref.sort_indices()
+    assert np.array_equal(plan.c_struct.rowptr, ref.indptr)
+    assert np.array_equal(plan.c_struct.colind, ref.indices)
+    S = torch.sparse_csr_tensor(torch.from_numpy(A.rowptr),
+                                torch.from_numpy(A.colind), vals.cpu(),
+                                A.shape).to(cuda)
+    lib = torch.sparse.mm(S, S).to_dense()
+    mine = torch.from_numpy(
+        plan.c_struct.change_nonzero_values(c.cpu().numpy()).to_dense()
+    ).to(cuda)
+    assert float((mine - lib).norm() / lib.norm()) <= tol
+    C = spgemm(A, A, device=cuda, dtype=dtype)
+    np.testing.assert_allclose(C.vals, ref.data, rtol=tol)
+    d = np.linspace(0.5, 2.0, A.width)
+    G = syrk_sparse(A, d, device=cuda, dtype=dtype).to_scipy()
+    want = A.to_scipy() @ sps.diags(d) @ A.to_scipy().T
+    assert sps.linalg.norm(G - want) <= tol * sps.linalg.norm(want)
+    assert galerkin_plan(A).to(cuda).a_idx.is_cuda
+
+
+def test_dist_matvec_2x2_on_card_matches_csr_device(cuda):
+    """A distributed matvec on a 2×2 grid over the card against the 1×1
+    ``CSRDevice`` product, with the transfers of a ``DistMultiVec``
+    product within the halo's bound."""
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.sparse import DistMultiVec, DistSparseMatrix
+    from elemental_tpu_torch.utils import count_transfers
+    A = sparse_laplacian_2d(64, 64, scaled=False)
+    g = Grid(devices=[cuda] * 4, height=2)
+    dA = DistSparseMatrix.from_sparse(A, g, dtype=torch.float64)
+    assert all(t.is_cuda for t in dA.lvals)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(A.width)) \
+        .to(cuda)
+    want = A.device_csr(device=cuda, dtype=torch.float64).matvec(x)
+    got = dA.matvec(x)
+    assert got.is_cuda
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    xv = DistMultiVec.from_array(x, g)
+    with count_transfers() as log:
+        yv = dA.matvec_transpose(xv)
+    assert not log.of("all-gather")
+    assert log.bytes() <= 4 * 4 * dA.halo * 8
+    assert float((yv.assemble() - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
+
+
+def test_ipm_driver_on_card(cuda, monkeypatch):
+    """One driver of the conic tier end to end on the card (its own
+    checks), with K1 launched by its factors."""
+    import importlib
+    import sys
+    from elemental_tpu_torch.kernels import extend_add as ea
+    monkeypatch.setattr(sys, "argv", ["lp_affine", "--device", "cuda"])
+    before = ea.extend_add.launches
+    res = importlib.import_module(
+        "elemental_tpu_torch.examples.lp_affine").main()
+    assert res.converged
+    assert ea.extend_add.launches > before

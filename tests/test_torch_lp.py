@@ -220,6 +220,12 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.ops.summa\n"
             "import elemental_tpu_torch.ops.gemm3d\n"
             "import elemental_tpu_torch.examples.lp_direct_large\n"
+            "import elemental_tpu_torch.sparse.distsparse\n"
+            "import elemental_tpu_torch.sparse.matmul\n"
+            "import elemental_tpu_torch.utils.transfers\n"
+            "import elemental_tpu_torch.entry\n"
+            "import elemental_tpu_torch.examples.bp\n"
+            "import elemental_tpu_torch.examples.remote_dist_sparse\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'elemental_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
