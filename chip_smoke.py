@@ -154,6 +154,27 @@ Phases, each printing at least one line and each fatal when it fails:
     and K1's launches across them; then ``entry()``'s forward (25 CG
     iterations on the 64² Laplacian, float32) on the card against the
     same forward on the CPU within 1e-4 relative in x and ‖r‖.
+22. the dense LAPACK tier (``lapack``, ``matrices``, ``extended``; plain
+    torch, no kernel of the port on its path): at 8192² in float32 and
+    float64 ``cholesky`` L and U, ``lu``, ``qr`` (reduced), ``ldl`` (the
+    unpivoted recursion, SPD), ``symmetric_solve``, ``hpd_solve`` and
+    ``linear_solve`` (16 right-hand sides), each with ms (CUDA events),
+    TFLOP/s and the ``torch.linalg`` call's time, its relative residual
+    (Frobenius) under 1e-5 / 1e-13; at 2048² float64 the host-driven
+    ``pivoted_cholesky`` (a rank-512 PSD matrix: the rank found),
+    ``lu_full`` and ``ldl_pivoted`` (indefinite, tiny diagonal) with ms and
+    host synchronisations; ``tsqr`` of 262,144 × 256 on a 2×2 grid over the
+    card, gather and butterfly, beside ``torch.linalg.qr``, with the
+    transfer log's bytes equal to p(p−1)·n² and p·log₂p·n² elements; the
+    Euclidean minimizations at 8192 × 4096 float64 against float64 host
+    solutions at the reference tests' gates; every generator at n = 1024
+    on the card (the deterministic ones equal to the CPU's within 1e-14,
+    the random ones held to structure and moments); ``dd_gemm`` at 1024³
+    float32 words within 1e-12 of the float64 product and
+    ``refined_solve_dd`` on the float32 ``cholesky`` at 4096; and K5 timed
+    on the Cholesky's top-level trailing update (4096², k = 4096) beside
+    the path's ``torch.matmul`` and ``torch.addmm``, with the recursion's
+    whole matmul time (a measurement: the path stays ``torch.matmul``).
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -2839,7 +2860,9 @@ DRIVERS = ["bp", "bp_complex", "bp_dense", "bpdn", "bpdn_dense", "cp",
            "dynamic_reg_counter", "sparse_multiply", "multiply_ex",
            "remote_dist_sparse", "lp_direct_large", "cg_laplacian",
            "helmholtz_solve", "sequential_least_squares", "different_grids",
-           "remote_update"]
+           "remote_update", "least_squares", "linear_solve", "simple_solve",
+           "symmetric_solve_ex", "lse", "glm", "tikhonov_ex", "gepp_growth",
+           "matrix_zoo"]
 
 
 def phase_drivers(mps_path: str) -> None:
@@ -2889,6 +2912,541 @@ def phase_drivers(mps_path: str) -> None:
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 22: the dense LAPACK tier
+LAPACK_N = 8192         # the factors' size
+PIVOT_N = 2048          # the host-driven pivoted loops'
+TSQR_M, TSQR_N = 262144, 256
+EMIN_M, EMIN_N = 8192, 4096
+GEN_N = 1024
+DD_N, REFINE_N = 1024, 4096
+LAPACK_GATE = {"float32": 1e-5, "float64": 1e-13}
+
+
+def _syncs(fn):
+    """(result, host synchronisations of ``fn()``): the warnings of
+    ``torch.cuda.set_sync_debug_mode('warn')``, counted."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _lapack_factors(gen, tag: str) -> None:
+    """The factors at LAPACK_N² beside their torch.linalg calls, the
+    residual gates, and hpd_solve / linear_solve with 16 right-hand
+    sides."""
+    import torch
+    from elemental_tpu_torch import lapack
+    n = LAPACK_N
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        gate = LAPACK_GATE[name]
+        g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+        spd = torch.matmul(g, g.T) / n + torch.eye(n, device="cuda",
+                                                    dtype=dtype)
+        b = torch.randn(n, 16, generator=gen, device="cuda", dtype=dtype)
+        # the Gaussian g's own float32 LU reads ~2e-5 (getrf's growth, not
+        # TF32; printed below): LU and linear_solve factor g + 2√n·I, whose
+        # spectrum lies in the disk of radius √n about 2√n
+        gs = g + 2 * n ** 0.5 * torch.eye(n, device="cuda", dtype=dtype)
+        spd64, g64, gs64 = spd.double(), g.double(), gs.double()
+
+        def rel(r, ref):
+            return float(torch.linalg.norm(r) / torch.linalg.norm(ref))
+
+        def chol_res(uplo):
+            f = lapack.cholesky(uplo, spd).double()
+            return rel(spd64 - (f @ f.T if uplo == "L" else f.T @ f), spd64)
+
+        def lu_res(a=gs, a64=gs64):
+            f = lapack.lu(a)
+            L = torch.tril(f.lu, -1).double() + torch.eye(
+                n, device="cuda", dtype=torch.float64)
+            return rel(a64[f.perm] - L @ torch.triu(f.lu).double(), a64)
+
+        def qr_res():
+            q, r = lapack.qr(g)
+            return rel(g64 - q.double() @ r.double(), g64)
+
+        def ldl_res():
+            f = lapack.ldl(spd, conjugate=False)
+            L = f.lower.double()
+            return rel(spd64 - (L * f.diag.double()[None, :]) @ L.T, spd64)
+
+        def solve_res(A64, X):
+            X = X.double()
+            return float(torch.linalg.norm(A64 @ X - b.double())
+                         / (torch.linalg.norm(A64) * torch.linalg.norm(X)))
+
+        n3 = float(n) ** 3
+        cases = [
+            ("cholesky L", lambda: lapack.cholesky("L", spd),
+             lambda: torch.linalg.cholesky(spd), "torch.linalg.cholesky",
+             n3 / 3, lambda: chol_res("L")),
+            ("cholesky U", lambda: lapack.cholesky("U", spd),
+             lambda: torch.linalg.cholesky(spd, upper=True),
+             "torch.linalg.cholesky(upper=True)", n3 / 3,
+             lambda: chol_res("U")),
+            ("lu", lambda: lapack.lu(gs), lambda: torch.linalg.lu_factor(gs),
+             "torch.linalg.lu_factor", 2 * n3 / 3, lu_res),
+            ("qr (reduced)", lambda: lapack.qr(g),
+             lambda: torch.linalg.qr(g), "torch.linalg.qr", 4 * n3 / 3,
+             qr_res),
+            ("ldl (unpivoted, SPD)", lambda: lapack.ldl(spd, False),
+             lambda: torch.linalg.ldl_factor(spd),
+             "torch.linalg.ldl_factor (Bunch-Kaufman pivoted: not the same "
+             "function)", n3 / 3, ldl_res),
+            ("symmetric_solve (16 rhs)",
+             lambda: lapack.symmetric_solve(spd, b),
+             lambda: torch.linalg.ldl_solve(*torch.linalg.ldl_factor(spd),
+                                            b),
+             "torch.linalg.ldl_factor + ldl_solve", n3 / 3,
+             lambda: solve_res(spd64, lapack.symmetric_solve(spd, b))),
+            ("hpd_solve (16 rhs)", lambda: lapack.hpd_solve("L", spd, b),
+             lambda: torch.cholesky_solve(b, torch.linalg.cholesky(spd)),
+             "torch.linalg.cholesky + cholesky_solve", n3 / 3,
+             lambda: solve_res(spd64, lapack.hpd_solve("L", spd, b))),
+            ("linear_solve (16 rhs)", lambda: lapack.linear_solve(gs, b),
+             lambda: torch.linalg.solve(gs, b), "torch.linalg.solve",
+             2 * n3 / 3, lambda: solve_res(gs64, lapack.linear_solve(gs, b))),
+        ]
+        print(f"[{tag}] lu {name} of the Gaussian {n}² itself (not gated): "
+              f"relative residual {lu_res(g, g64):.3e}")
+        for label, fn, lib, lib_name, flops, resid in cases:
+            res = resid()
+            check(res <= gate, f"{label} {name} at {n}²: relative residual "
+                  f"{res:.3e} over {gate:g}")
+            reps = 3 if "ldl" in label or "symmetric" in label else 5
+            ms, lib_ms = time_pair(fn, lib, reps=reps)
+            print(f"[{tag}] {label} {name} {n}²: {ms:.2f} ms, "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s ({flops / 1e12:.3g} "
+                  f"TFLOP counted), {ms / lib_ms:.3f}× {lib_name} "
+                  f"({lib_ms:.2f} ms); relative residual {res:.3e} "
+                  f"(gate {gate:g})")
+        del g, gs, spd, spd64, g64, gs64, b
+        torch.cuda.empty_cache()
+
+
+def _lapack_pivoted(gen, tag: str) -> None:
+    """The host-driven pivoted loops at PIVOT_N², float64: ms and host
+    synchronisations, each held to its reconstruction."""
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.lapack.ldl import ldl_pivoted
+    n, dt = PIVOT_N, torch.float64
+    eye = torch.eye(n, device="cuda", dtype=dt)
+    # rank-deficient PSD: true rank n/4
+    rank = n // 4
+    g = torch.randn(n, rank, generator=gen, device="cuda", dtype=dt)
+    psd = g @ g.T
+    tol = 1e-10 * float(torch.diagonal(psd).max())
+    f, syncs = _syncs(lambda: lapack.pivoted_cholesky("L", psd, tol=tol))
+    check(int(f.rank) == rank, f"pivoted_cholesky rank {int(f.rank)}, "
+          f"true rank {rank}")
+    L = f.factor[:, :rank]
+    err = float((L @ L.T - psd[f.perm][:, f.perm]).abs().max()
+                / psd.abs().max())
+    check(err <= 1e-12, f"pivoted_cholesky reconstruction {err:.3e}")
+    ms = cuda_ms(lambda: lapack.pivoted_cholesky("L", psd, tol=tol), 1)
+    print(f"[{tag}] pivoted_cholesky float64 {n}² of rank {rank}: rank "
+          f"detected {int(f.rank)}, reconstruction {err:.3e}; {ms:.1f} ms, "
+          f"{syncs} host syncs")
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=dt)
+    f, syncs = _syncs(lambda: lapack.lu_full(a))
+    Lf = torch.tril(f.lu, -1) + eye
+    err = float((Lf @ torch.triu(f.lu) - a[f.rowperm][:, f.colperm]).abs()
+                .max() / a.abs().max())
+    check(err <= 1e-12 * n, f"lu_full reconstruction {err:.3e}")
+    ms = cuda_ms(lambda: lapack.lu_full(a), 1)
+    print(f"[{tag}] lu_full float64 {n}²: P·A·Q − L·U max {err:.3e} of "
+          f"max|A|; {ms:.1f} ms, {syncs} host syncs")
+    # indefinite with tiny diagonals (test_bunch_kaufman_pivoted_ldl)
+    s = (a + a.T) / 2
+    s.diagonal().mul_(1e-12)
+    f, syncs = _syncs(lambda: ldl_pivoted(s))
+    D = torch.diag(f.diag) + torch.diag(f.subdiag, -1) \
+        + torch.diag(f.subdiag, 1)
+    err = float((f.lower @ D @ f.lower.T - s[f.perm][:, f.perm]).abs().max())
+    bound_ = 1e-12 * max(1.0, float(s.abs().max())) * n
+    check(err <= bound_, f"ldl_pivoted reconstruction {err:.3e} over "
+          f"{bound_:.3e}")
+    two = int((f.subdiag != 0).sum())
+    ms = cuda_ms(lambda: ldl_pivoted(s), 1)
+    print(f"[{tag}] ldl_pivoted float64 {n}² indefinite, tiny diagonal: "
+          f"{two} 2×2 pivots, max|L| {float(f.lower.abs().max()):.3f}, "
+          f"reconstruction {err:.3e} (gate {bound_:.3e}); {ms:.1f} ms, "
+          f"{syncs} host syncs")
+    torch.cuda.empty_cache()
+
+
+def _lapack_tsqr(gen, tag: str) -> None:
+    """TSQR of TSQR_M × TSQR_N on a 2×2 grid over the card, both trees,
+    beside torch.linalg.qr of the whole; the transfer log's bytes held to
+    p(p−1)·n² and p·log₂p·n² elements."""
+    import torch
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.lapack import tsqr
+    from elemental_tpu_torch.utils import count_transfers
+    m, n, p = TSQR_M, TSQR_N, 4
+    g4 = Grid(devices=[torch.device("cuda", 0)] * 4, height=2)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        gate = {"float32": 1e-5, "float64": 1e-12}[name]
+        a = torch.randn(m, n, generator=gen, device="cuda", dtype=dtype)
+        eye = torch.eye(n, device="cuda", dtype=dtype)
+        lib_ms = cuda_ms(lambda: torch.linalg.qr(a), 3)
+        rs = {}
+        for tree, count in ((False, p * (p - 1)), (True, p * 2)):
+            with count_transfers() as log:
+                q, r = tsqr(a, g4, tree=tree)
+            want = count * n * n * a.element_size()
+            check(log.bytes() == want, f"tsqr tree={tree} {name}: "
+                  f"{log.bytes()} bytes across positions, not {want}")
+            res = float(torch.linalg.norm((q @ r - a).double())
+                        / torch.linalg.norm(a.double()))
+            orth = float(torch.linalg.norm((q.T @ q - eye).double()))
+            check(res <= gate and orth <= gate, f"tsqr tree={tree} {name}: "
+                  f"‖QR − A‖/‖A‖ {res:.3e}, ‖QᵀQ − I‖ {orth:.3e}")
+            rs[tree] = r
+            ms = cuda_ms(lambda: tsqr(a, g4, tree=tree), 3)
+            print(f"[{tag}] tsqr {'butterfly' if tree else 'gather'} "
+                  f"{name} {m}×{n} on 2×2: {ms:.2f} ms, {ms / lib_ms:.3f}× "
+                  f"torch.linalg.qr of the whole ({lib_ms:.2f} ms); "
+                  f"‖QR − A‖/‖A‖ {res:.3e}, ‖QᵀQ − I‖ {orth:.3e}; "
+                  f"{log.bytes()} bytes across positions = {count}·n²·"
+                  f"{a.element_size()}")
+            del q, r
+        # R is unique up to the signs of its rows
+        diff = float((rs[True].abs() - rs[False].abs()).abs().max()
+                     / rs[False].abs().max())
+        check(diff <= gate, f"tsqr {name}: the trees' R differ by {diff:.3e}")
+        print(f"[{tag}] tsqr {name}: the two trees' |R| agree within "
+              f"{diff:.3e}")
+        del a, rs
+        torch.cuda.empty_cache()
+
+
+def _lapack_euclid(gen, tag: str) -> None:
+    """The Euclidean minimizations at EMIN_M × EMIN_N in float64 against
+    float64 NumPy solutions on the host, at the reference tests' gates
+    (``tests/lapack/test_spectral_solve.py``)."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch import lapack
+    m, n = EMIN_M, EMIN_N
+    dt = torch.float64
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
+
+    a, b, bt = rand(m, n), rand(m), rand(n)
+    G = 0.1 * rand(n, n)
+    A, B, Bt, Gh = (t.cpu().numpy() for t in (a, b, bt, G))
+    t0 = time.perf_counter()
+    AtA = A.T @ A
+    ref_ls = np.linalg.solve(AtA, A.T @ B)
+    ref_mn = A @ np.linalg.solve(AtA, Bt)     # min-norm x of Aᵀx = bt
+    ref_ridge = np.linalg.solve(AtA + 0.09 * np.eye(n), A.T @ B)
+    ref_tik = np.linalg.solve(AtA + Gh.T @ Gh, A.T @ B)
+    t_host = time.perf_counter() - t0
+    cases = (("least_squares N", lambda: lapack.least_squares("N", a, b),
+              ref_ls, 1e-8),
+             ("least_squares T (minimum norm)",
+              lambda: lapack.least_squares("T", a, bt), ref_mn, 1e-8),
+             ("ridge γ = 0.3", lambda: lapack.ridge("N", a, b, 0.3),
+              ref_ridge, 1e-9),
+             ("tikhonov", lambda: lapack.tikhonov("N", a, b, G), ref_tik,
+              1e-8))
+    for label, fn, ref, gate in cases:
+        x, t = wall(fn)
+        err = float(np.abs(x.cpu().numpy() - ref).max()
+                    / max(1.0, np.abs(ref).max()))
+        check(err <= gate, f"{label} {m}×{n}: {err:.3e} from the host "
+              f"solution, over {gate:g}")
+        ms = cuda_ms(fn, 3)
+        print(f"[{tag}] {label} float64 {m}×{n}: {ms:.2f} ms; "
+              f"{err:.3e} from the host float64 solution (gate {gate:g})")
+    p = 256
+    Bc, c, d = rand(p, n), rand(m), rand(p)
+    x, _ = wall(lambda: lapack.lse(a, Bc, c, d))
+    xh, Bh, ch, dh = (t.cpu().numpy() for t in (x, Bc, c, d))
+    cons = float(np.abs(Bh @ xh - dh).max())
+    grad = A.T @ (A @ xh - ch)
+    proj = grad - Bh.T @ np.linalg.lstsq(Bh.T, grad, rcond=None)[0]
+    check(cons <= 1e-8 and np.abs(proj).max() <= 1e-6,
+          f"lse: constraint {cons:.3e}, projected gradient "
+          f"{np.abs(proj).max():.3e}")
+    ms = cuda_ms(lambda: lapack.lse(a, Bc, c, d), 3)
+    print(f"[{tag}] lse float64 {m}×{n}, {p} constraints: {ms:.2f} ms; "
+          f"max|Bx − d| {cons:.3e} (gate 1e-8), projected gradient "
+          f"{np.abs(proj).max():.3e} (gate 1e-6)")
+    pg = m
+    Bg, dg = rand(m, pg), rand(m)
+    (x, y), _ = wall(lambda: lapack.glm(a, Bg, dg))
+    res = float(np.abs(A @ x.cpu().numpy() + Bg.cpu().numpy()
+                       @ y.cpu().numpy() - dg.cpu().numpy()).max())
+    check(res <= 1e-8, f"glm: constraint {res:.3e}")
+    ms = cuda_ms(lambda: lapack.glm(a, Bg, dg), 3)
+    print(f"[{tag}] glm float64 A {m}×{n}, B {m}×{pg} (KKT of "
+          f"{n + pg + m}): {ms:.2f} ms; max|Ax + By − d| {res:.3e} "
+          f"(gate 1e-8); the host references took {t_host:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def _random_generator_checks(n: int) -> dict:
+    """{random generator: whether its matrix at n on the card has its
+    structure (Hermitian, unitary, normal, support, triangle) and, where it
+    is i.i.d., its mean and variance within 5σ}."""
+    import math
+    import torch
+    from elemental_tpu_torch import matrices as M
+    dev, f64, c128 = "cuda", torch.float64, torch.complex128
+
+    def sigma5(x, mean, var):
+        x = x.double().reshape(-1)
+        k = x.numel()
+        return (abs(float(x.mean()) - mean) <= 5 * (var / k) ** 0.5
+                and abs(float(x.var()) - var)
+                <= 5 * (2 * var * var / k) ** 0.5)
+
+    def most(x):
+        return float(x.abs().max())
+
+    ok = {"uniform": sigma5(M.uniform(n, n, f64, 1.0, 2.0, device=dev),
+                            1.0, 4 / 3),
+          "gaussian": sigma5(M.gaussian(n, n, f64, 0.5, 2.0, device=dev),
+                             0.5, 4.0),
+          "bernoulli": sigma5(M.bernoulli(n, n, 0.3, f64, device=dev), 0.3,
+                              0.21),
+          "rademacher": sigma5(M.rademacher(n, n, f64, device=dev), 0.0,
+                               1.0)}
+    W = M.wigner(n, c128, device=dev)
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
+    ok["wigner"] = most(W - W.mH) == 0 and sigma5(W[upper].real, 0.0, 0.5)
+    Q = M.haar(n, c128, device=dev)
+    ok["haar"] = most(Q.mH @ Q - torch.eye(n, device=dev,
+                                           dtype=c128)) <= 1e-12
+    H = M.hermitian_uniform_spectrum(n, 2.0, 5.0, c128, device=dev)
+    ok["hermitian_uniform_spectrum"] = (
+        most(H - H.mH) <= 1e-12
+        and float(torch.linalg.eigvalsh(H).min()) >= 2.0 - 1e-9)
+    N = M.normal_uniform_spectrum(n, 1.0, 0.5, c128, device=dev)
+    ok["normal_uniform_spectrum"] = most(N @ N.mH - N.mH @ N) <= 1e-12
+    T = M.three_valued(n, n, 0.5, f64, device=dev)
+    ok["three_valued"] = (bool(((T == -1) | (T == 0) | (T == 1)).all())
+                          and sigma5((T != 0).double(), 0.5, 0.25))
+    A = M.hatano_nelson(n, g=0.3, device=dev)
+    ok["hatano_nelson"] = (abs(float(A[0, 1]) - math.exp(0.3)) < 1e-12
+                           and abs(float(A[n - 1, 0]) - math.exp(0.3))
+                           < 1e-12)
+    G = M.uniform_helmholtz_greens(n, 0.5, device=dev)
+    ok["uniform_helmholtz_greens"] = (most(G - G.T) <= 1e-12 * most(G)
+                                      and most(torch.diagonal(G)) == 0)
+    B = M.ajtai_type_basis(64, 0.5, device=dev)
+    ok["ajtai_type_basis"] = (
+        most(torch.tril(B, -1)) == 0
+        and bool((torch.triu(B, 1) <= torch.diagonal(B)[None, :] / 2).all()))
+    K = M.knapsack_type_basis(n, 100.0, device=dev)
+    ok["knapsack_type_basis"] = (tuple(K.shape) == (n + 1, n)
+                                 and bool((K[n] == K[n].round()).all()))
+    return ok
+
+
+def _lapack_generators(tag: str) -> None:
+    """Every generator at GEN_N on the card: the deterministic ones
+    against the same call on the CPU (float64: 1e-14 of the largest
+    entry), the random ones held to shape, dtype and structure."""
+    import inspect
+    import torch
+    from elemental_tpu_torch import matrices as M
+    from elemental_tpu_torch.core import random_ as rng
+    from elemental_tpu_torch.matrices import deterministic, random_gen
+    n = GEN_N
+    args = {"jordan": (n, 2.0), "kahan": (n, 0.3), "pei": (n, 2.0),
+            "forsythe": (n, 1e-3, 2.0), "lauchli": (n, 0.1),
+            "hanowa": (n, 2.0), "walsh": (10,), "wilkinson": (n // 2,),
+            "extended_kahan": (8, 0.9, 0.1), "druinsky_toledo": (n // 2,),
+            "tri_w": (n, -2.0, 3), "fox_li": (n, 16.0)}
+    vec = torch.linspace(1.0, 2.0, n, dtype=torch.float64)
+    vec_args = {"diagonal": (vec,), "cauchy": (vec, vec + 0.5),
+                "circulant": (vec,), "toeplitz": (vec, vec.flip(0)),
+                "hankel": (vec, vec.flip(0)), "fiedler": (vec,),
+                "cauchy_like": (vec, vec, vec, vec + 0.5)}
+    t0 = time.perf_counter()
+    names = [f for f, obj in vars(deterministic).items()
+             if inspect.isfunction(obj) and not f.startswith("_")
+             and obj.__module__ == deterministic.__name__]
+    worst = (0.0, "")
+    for f in names:
+        fn = getattr(M, f)
+        if f in vec_args:
+            got = fn(*(v.to("cuda") for v in vec_args[f]))
+            ref = fn(*vec_args[f])
+        else:
+            got = fn(*args.get(f, (n,)), device="cuda")
+            ref = fn(*args.get(f, (n,)), device="cpu")
+        check(got.is_cuda and got.dtype == ref.dtype
+              and got.shape == ref.shape, f"generator {f}: {got.dtype} "
+              f"{tuple(got.shape)} on {got.device}")
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got.cpu() - ref).abs().max()) / scale
+        gate = 1e-14 if ref.dtype in (torch.float64, torch.complex128) \
+            else 1e-6
+        check(err <= gate, f"generator {f}: card vs CPU {err:.3e}")
+        worst = max(worst, (err, f))
+    print(f"[{tag}] {len(names)} deterministic generators at n = {n} "
+          f"(walsh k = 10, extended_kahan k = 8) on the card equal the CPU's "
+          f"within {worst[0]:.3e} ({worst[1]}); {time.perf_counter() - t0:.1f}"
+          f" s with the host pieces")
+    rng.seed(0)
+    checks = _random_generator_checks(n)
+    rnames = [f for f, obj in vars(random_gen).items()
+              if inspect.isfunction(obj) and not f.startswith("_")
+              and obj.__module__ == random_gen.__name__]
+    check(sorted(rnames) == sorted(checks), f"random generators {rnames}")
+    for f, ok in checks.items():
+        check(ok, f"random generator {f} at n = {n}: structure or "
+              f"distribution off")
+    print(f"[{tag}] {len(checks)} random generators at n = {n} (ajtai 64) on "
+          f"the card: shapes, dtypes, structure and moments within 5σ")
+    torch.cuda.empty_cache()
+
+
+def _lapack_dd(gen, tag: str) -> None:
+    """dd_gemm of DD_N³ float32 words against float64 torch.matmul of the
+    same values, and refined_solve_dd on the port's float32 cholesky at
+    REFINE_N."""
+    import torch
+    from elemental_tpu_torch import extended as X
+    from elemental_tpu_torch import lapack
+    n = DD_N
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    b = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+
+    def words(x):
+        hi = x.float()
+        return X.DD(hi, (x - hi.double()).float())
+
+    A, B = words(a), words(b)
+    C, t = wall(lambda: X.dd_gemm(A, B))
+    ref = (A.hi.double() + A.lo.double()) @ (B.hi.double() + B.lo.double())
+    err = float(((C.hi.double() + C.lo.double()) - ref).abs().max()
+                / ref.abs().max())
+    f32 = float((A.hi @ B.hi - ref).abs().max() / ref.abs().max())
+    check(err <= 1e-12, f"dd_gemm {n}³: {err:.3e} from the float64 product")
+    ms = cuda_ms(lambda: X.dd_gemm(A, B), 2)
+    print(f"[{tag}] dd_gemm {n}³ float32 words: {ms:.1f} ms; {err:.3e} of "
+          f"max|C| from the float64 product (float32 alone {f32:.3e})")
+    n = REFINE_N
+    g = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    A32 = (g @ g.T + n * torch.eye(n, device="cuda",
+                                    dtype=torch.float64)).float()
+    b32 = torch.randn(n, generator=gen, device="cuda", dtype=torch.float32)
+    L = lapack.cholesky("L", A32)
+
+    def solve(r):
+        return lapack.cholesky_solve_after("L", "N", L, r[:, None])[:, 0]
+
+    xdd, t = wall(lambda: X.refined_solve_dd(A32, solve, b32, iters=4))
+    x_true = torch.linalg.solve(A32.double(), b32.double())
+    scale = float(x_true.abs().max())
+    err_dd = float((xdd.hi.double() + xdd.lo.double() - x_true).abs().max()
+                   ) / scale
+    err_f32 = float((solve(b32).double() - x_true).abs().max()) / scale
+    check(err_dd <= 1e-10 and err_dd <= 1e-2 * err_f32,
+          f"refined_solve_dd {n}: {err_dd:.3e} (plain f32 {err_f32:.3e})")
+    print(f"[{tag}] refined_solve_dd on the float32 cholesky at {n}: "
+          f"{t * 1e3:.1f} ms (4 refinements); error {err_dd:.3e}, the "
+          f"plain float32 solve's {err_f32:.3e}")
+    torch.cuda.empty_cache()
+
+
+def _lapack_k5(gen, tag: str) -> None:
+    """K5 (``masked_rank_k_update``) on the recursive Cholesky's top-level
+    trailing update at LAPACK_N (A22 − L21·L21ᴴ, 4096², k = 4096, lower),
+    beside the path's update (``torch.matmul`` and a subtraction) and
+    ``torch.addmm`` over the square, and the recursion's whole matmul
+    time; a measurement only, the path stays torch.matmul."""
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.kernels import matmul as mm
+    n = LAPACK_N
+    m = n // 2
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        gate = LAPACK_GATE[name]
+        g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+        spd = torch.matmul(g, g.T) / n + torch.eye(n, device="cuda",
+                                                    dtype=dtype)
+        del g
+        L = lapack.cholesky("L", spd)
+        c = spd[m:, m:].contiguous()
+        L21 = L[m:, :m].contiguous()
+        L21h = L21.T.contiguous()
+        path = mm._rank_k_path(c, L21, L21h)
+
+        def k5():
+            return mm._run_rank_k(c, L21, L21h, -1.0, True, path)
+
+        def ours():
+            return c - torch.matmul(L21, L21.mH)
+
+        def addmm():
+            return torch.addmm(c, L21, L21h, alpha=-1.0)
+
+        want = ours()
+        got = k5()
+        low = torch.tril(torch.ones(m, m, dtype=torch.bool, device="cuda"))
+        err = float((got - want)[low].abs().max() / want.abs().max())
+        check(err <= gate, f"K5 on the trailing update {name}: {err:.3e}")
+        k5_ms, path_ms = time_pair(k5, ours, reps=5)
+        addmm_ms = cuda_ms(addmm, 5)
+        # the recursion's matmuls: 2^l of (m/2^l)³ at level l, down to the
+        # 256 base
+        rec_ms, lvl, size = 0.0, 0, m
+        while 2 * size > 256:
+            x = torch.randn(size, size, generator=gen, device="cuda",
+                            dtype=dtype)
+            rec_ms += (1 << lvl) * cuda_ms(lambda: torch.matmul(x, x.mH), 3)
+            lvl, size = lvl + 1, size // 2
+        chol_ms = cuda_ms(lambda: lapack.cholesky("L", spd), 3)
+        print(f"[{tag}] K5 {path} on cholesky's top trailing update {name} "
+              f"({m}², k = {m}, lower): {k5_ms:.3f} ms against the path's "
+              f"A22 − L21·L21ᴴ {path_ms:.3f} ms (torch.matmul, the whole "
+              f"square) and torch.addmm {addmm_ms:.3f} ms; K5's triangle "
+              f"within {err:.3e} of the path's; the recursion's matmuls "
+              f"{rec_ms:.2f} ms of the {chol_ms:.2f} ms factor")
+        del spd, L, c, L21, L21h, want, got
+        torch.cuda.empty_cache()
+
+
+def phase_lapack(seed: int) -> None:
+    """22: the dense LAPACK tier on the card (see the module docstring).
+    Every gate is fatal."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = "22 lapack"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t_phase = time.perf_counter()
+    print(f"[{tag}] linalg library: "
+          f"{torch.backends.cuda.preferred_linalg_library()}")
+    for part in (_lapack_factors, _lapack_pivoted, _lapack_tsqr,
+                 _lapack_euclid, _lapack_dd, _lapack_k5):
+        t0 = time.perf_counter()
+        part(gen, tag)
+        print(f"[{tag}] {part.__name__[8:]}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _lapack_generators(tag)
+    print(f"[{tag}] generators: {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -2912,7 +3470,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-21 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-22 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -2980,8 +3538,9 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     phase_dense(args.seed)
     phase_sparse_products(args.seed)
     phase_drivers(os.path.join(tmp, "gen16.mps"))
+    phase_lapack(args.seed)
 
-    print(f"[1-21] every phase, the kernels' build included, took "
+    print(f"[1-22] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",

@@ -22,7 +22,11 @@ Ported so far, each slice with its TPU kernels written by hand for Hopper:
 * the dense core and the BLAS tier: ``Grid`` (an h×w array of torch
   devices), ``DistMatrix`` in the reference's 14 distributions (one block
   per grid position), redistribution, and ``ops``: level 1-3, the SUMMA
-  variants and the 3-D GEMM, all plain torch.
+  variants and the 3-D GEMM, all plain torch;
+* the dense LAPACK tier (``lapack``: Cholesky, LU, LDL and Bunch-Kaufman,
+  QR and TSQR, their solves, props, equilibration, the Euclidean
+  minimizations), the matrix generators (``matrices``) and double-word and
+  quad-double arithmetic (``extended``), plain torch.
 
 Every public entry point takes an explicit ``device`` and ``dtype``, or
 builds a host plan that ``.to(device, dtype)`` moves; a grid names its

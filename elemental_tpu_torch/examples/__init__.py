@@ -30,3 +30,9 @@ def device_and_dtype(args: Args, dtype: str = "float32"):
     args.input("dtype", "working dtype", dtype)
     return lambda: (torch.device(args["device"]),
                     effective_dtype(args["dtype"]))
+
+
+def tolerance(dtype: torch.dtype, tol64: float, tol32: float = 1e-4) -> float:
+    """A driver's threshold: the JAX driver's (float64) one in float64 and
+    complex128, ``tol32`` in float32 and complex64."""
+    return tol64 if dtype in (torch.float64, torch.complex128) else tol32

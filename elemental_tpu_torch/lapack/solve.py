@@ -1,25 +1,65 @@
-"""Krylov solvers (reference headers ``include/El/lapack_like/solve/
-{GMRES,LGMRES,FGMRES,Refined}.hpp``; counterpart of the Krylov half of
-``elemental_tpu/lapack/solve.py``).
+"""Solvers (counterpart of ``elemental_tpu/lapack/solve.py``; reference
+``src/lapack_like/solve``: Linear, HPD, Symmetric/Hermitian, SQSD,
+MultiShiftHess; headers ``include/El/lapack_like/solve/
+{GMRES,LGMRES,FGMRES,Refined}.hpp``).
 
-The operator is any callable on tensors (a dense product, ``SpMVPlan.matvec``).
-The reference's ``while_loop``/``fori_loop`` bodies become Python loops on
-tensors: the vectors stay on their device, and each loop test is one
-host-side comparison per iteration (one device synchronisation).  The
-arithmetic is the reference's, step for step, so in float64 the iteration
-counts are its counts.
+The dense solvers factor with the port's dense LAPACK (``ldl``, and the
+re-exported ``hpd_solve`` and ``linear_solve``); ``multishift_hess_solve``
+is one batched ``torch.linalg.solve`` over the shifts.
 
-The dense solvers of that file (``symmetric_solve``, ``hpd_solve``,
-``linear_solve``, ``multishift_hess_solve``) wait for the dense LAPACK tier
-(ROADMAP.md, queue 1).
+The Krylov operator is any callable on tensors (a dense product,
+``SpMVPlan.matvec``).  The reference's ``while_loop``/``fori_loop`` bodies
+become Python loops on tensors: the vectors stay on their device, and each
+loop test is one host-side comparison per iteration (one device
+synchronisation).  The arithmetic is the reference's, step for step, so in
+float64 the iteration counts are its counts.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+
+from ..core.distmatrix import DistMatrix, as_array, like
+from .cholesky import hpd_solve  # noqa: F401  (re-exported)
+from .ldl import ldl
+from .ldl import solve_after as ldl_solve_after
+from .lu import linear_solve  # noqa: F401  (re-exported)
+
+Arr = Union[torch.Tensor, DistMatrix]
+
+
+def symmetric_solve(A: Arr, B: Arr, conjugate: bool = False) -> Arr:
+    """Solve with symmetric (or Hermitian when conjugate) A via dense LDL
+    (reference ``SymmetricSolve``/``HermitianSolve``)."""
+    fact = ldl(A, conjugate=conjugate)
+    return ldl_solve_after(fact, B, conjugate=conjugate)
+
+
+def hermitian_solve(A: Arr, B: Arr) -> Arr:
+    return symmetric_solve(A, B, conjugate=True)
+
+
+def sqsd_solve(A: Arr, B: Arr) -> Arr:
+    """Symmetric quasi-semidefinite solve (reference ``SQSDSolve``): LDL
+    without pivoting is stable for SQSD operands."""
+    return symmetric_solve(A, B, conjugate=False)
+
+
+def multishift_hess_solve(H: Arr, shifts, B: Arr) -> Arr:
+    """Solve (H − σ_j I) x_j = b_j with upper-Hessenberg H (reference
+    ``MultiShiftHessSolve``): one batched solve over the shifts."""
+    h = as_array(H)
+    b = as_array(B)
+    shifts = torch.as_tensor(shifts, device=h.device)
+    eye = torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
+    dt = torch.promote_types(torch.promote_types(h.dtype, shifts.dtype),
+                             b.dtype)
+    lhs = (h[None] - shifts[:, None, None] * eye).to(dt)
+    x = torch.linalg.solve(lhs, b.T.to(dt)[:, :, None])[:, :, 0].T
+    return like(B, x)
 
 
 class KrylovResult(NamedTuple):

@@ -253,6 +253,10 @@ def _trsm_base(a, b, left, lower, trans_a, conj_a, unit):
     if conj_a:
         a = a.conj()
     a, b = _common(a, b)
+    if b.ndim == 1:   # a vector, as jax.lax.linalg.triangular_solve takes it
+        col = b[:, None] if left else b[None, :]
+        return _trsm_base(a, col, left, lower, False, False, unit) \
+            .reshape(-1)
     return torch.linalg.solve_triangular(a, b, upper=not lower, left=left,
                                          unitriangular=unit)
 

@@ -1496,3 +1496,122 @@ def test_ipm_driver_on_card(cuda, monkeypatch):
         "elemental_tpu_torch.examples.lp_affine").main()
     assert res.converged
     assert ea.extend_add.launches > before
+
+
+def _host(t):
+    return t.detach().cpu().resolve_conj().numpy()
+
+
+@pytest.mark.parametrize("which", ["cholesky", "lu", "qr"])
+def test_dense_factor_f32_on_card_has_no_tf32(cuda, which):
+    """The dense factors at 1024 in float32 on the card against the
+    float64 host factors of the same matrix, within 1e-5 (TF32 in the
+    recursion's products would read about 1e-3), with the caller's TF32
+    flag on and restored."""
+    import scipy.linalg as sla
+    from elemental_tpu_torch import lapack
+    n = 1024
+    g = np.random.default_rng(40).standard_normal((n, n))
+    a = (g @ g.T + n * np.eye(n) if which == "cholesky" else
+         g + 2 * np.sqrt(n) * np.eye(n))
+    a32 = torch.from_numpy(a.astype(np.float32)).to(cuda)
+    a64 = a.astype(np.float32).astype(np.float64)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        if which == "cholesky":
+            got = _host(lapack.cholesky("L", a32))
+            want = np.linalg.cholesky(a64)
+        elif which == "lu":
+            f = lapack.lu(a32)
+            want, piv = sla.lu_factor(a64)
+            np.testing.assert_array_equal(_host(f.pivots), piv)
+            got = _host(f.lu)
+        else:
+            q, r = lapack.qr(a32)
+            got, want = np.abs(_host(r)), np.abs(np.linalg.qr(a64)[1])
+            res = np.linalg.norm(_host(q).astype(np.float64)
+                                 @ _host(r) - a64) / np.linalg.norm(a64)
+            assert res <= 1e-5, res
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("n,cplx", [(64, False), (24, True)])
+def test_ldl_pivoted_on_card_matches_cpu(cuda, n, cplx):
+    """Bunch-Kaufman on an indefinite matrix with tiny diagonals on the
+    card: the same pivots as on the CPU, the factor within 1e-12."""
+    from elemental_tpu_torch.lapack.ldl import (ldl_pivoted,
+                                                solve_after_pivoted)
+    rng = np.random.default_rng(41)
+    a = rng.standard_normal((n, n))
+    if cplx:
+        a = a + 1j * rng.standard_normal((n, n))
+    a = (a + a.conj().T) / 2
+    np.fill_diagonal(a, 1e-12 * np.real(np.diag(a)))
+    f = ldl_pivoted(torch.from_numpy(a).to(cuda), conjugate=cplx)
+    ref = ldl_pivoted(torch.from_numpy(a), conjugate=cplx)
+    assert all(t.is_cuda for t in f)
+    np.testing.assert_array_equal(_host(f.perm), _host(ref.perm))
+    for got, want in zip(f[:3], ref[:3]):
+        assert np.abs(_host(got) - _host(want)).max() <= 1e-12 * max(
+            1.0, np.abs(_host(want)).max())
+    b = rng.standard_normal(n)
+    x = _host(solve_after_pivoted(f, torch.from_numpy(b).to(cuda),
+                                  conjugate=cplx))
+    assert np.linalg.norm(a @ x - b) < 1e-8 * np.linalg.norm(b)
+
+
+def test_tsqr_2x2_on_card(cuda):
+    """TSQR on a 2×2 grid over the card, gather and butterfly: Q·R = A,
+    QᴴQ = I, R equal up to its rows' signs, and the transfer log's bytes p(p−1)·n² and
+    p·log₂p·n² elements."""
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.lapack import tsqr
+    from elemental_tpu_torch.utils import count_transfers
+    m, n, p = 4096, 64, 4
+    a = torch.from_numpy(np.random.default_rng(42).standard_normal((m, n))) \
+        .to(cuda)
+    g = Grid(devices=[cuda] * 4, height=2)
+    rs = {}
+    for tree, want in ((False, p * (p - 1)), (True, p * 2)):
+        with count_transfers() as log:
+            q, r = tsqr(a, g, tree=tree)
+        assert q.is_cuda and r.is_cuda
+        assert log.bytes() == want * n * n * 8
+        assert float(torch.linalg.norm(q @ r - a) / torch.linalg.norm(a)) \
+            <= 1e-12
+        assert float((q.T @ q - torch.eye(n, dtype=q.dtype, device=cuda))
+                     .abs().max()) <= 1e-12
+        rs[tree] = r
+    # R is unique up to the signs of its rows
+    assert float((rs[True].abs() - rs[False].abs()).abs().max()) <= \
+        1e-12 * float(rs[False].abs().max())
+
+
+def test_refined_solve_dd_on_card_cholesky(cuda):
+    """refined_solve_dd on the card's float32 Cholesky reaches 1e-10 and
+    beats the plain float32 solve by 100×."""
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.extended import refined_solve_dd
+    n = 512
+    rng = np.random.default_rng(43)
+    g = rng.standard_normal((n, n))
+    a = (g @ g.T + n * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    A = torch.from_numpy(a).to(cuda)
+    L = lapack.cholesky("L", A)
+
+    def solve(r):
+        return lapack.cholesky_solve_after("L", "N", L, r[:, None])[:, 0]
+
+    xdd = refined_solve_dd(A, solve, torch.from_numpy(b).to(cuda), iters=4)
+    assert xdd.hi.is_cuda
+    x_true = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+    err_dd = np.abs(xdd.to_float64() - x_true).max() / np.abs(x_true).max()
+    err_f32 = np.abs(_host(solve(torch.from_numpy(b).to(cuda)))
+                     - x_true).max() / np.abs(x_true).max()
+    assert err_dd < 1e-10 and err_dd < 1e-2 * err_f32, (err_dd, err_f32)

@@ -226,6 +226,22 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.entry\n"
             "import elemental_tpu_torch.examples.bp\n"
             "import elemental_tpu_torch.examples.remote_dist_sparse\n"
+            "import elemental_tpu_torch.extended\n"
+            "import elemental_tpu_torch.matrices.deterministic\n"
+            "import elemental_tpu_torch.matrices.random_gen\n"
+            "import elemental_tpu_torch.lapack.util\n"
+            "import elemental_tpu_torch.lapack.perm\n"
+            "import elemental_tpu_torch.lapack.reflect\n"
+            "import elemental_tpu_torch.lapack.cholesky\n"
+            "import elemental_tpu_torch.lapack.lu\n"
+            "import elemental_tpu_torch.lapack.ldl\n"
+            "import elemental_tpu_torch.lapack.qr\n"
+            "import elemental_tpu_torch.lapack.props\n"
+            "import elemental_tpu_torch.lapack.equilibrate\n"
+            "import elemental_tpu_torch.lapack.euclidean_min\n"
+            "import elemental_tpu_torch.lapack.solve\n"
+            "import elemental_tpu_torch.examples.gepp_growth\n"
+            "import elemental_tpu_torch.examples.matrix_zoo\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'elemental_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
