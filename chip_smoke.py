@@ -148,9 +148,9 @@ Phases, each printing at least one line and each fatal when it fails:
     A·A and ``dist_galerkin`` of the LP's A equal to the 1×1 results within
     the same tolerances, and ``DistMap.translate_device`` of 2²⁰ indices
     equal to ``translate``.
-21. every driver of ``elemental_tpu_torch/examples`` in this process at its
-    default size with ``--device cuda`` (``lp_direct`` on phase 16's n1 =
-    16 MPS file, float64), each held to its own checks, with its seconds
+21. every driver of ``elemental_tpu_torch/examples`` (65) in this process
+    at its default size with ``--device cuda`` (``lp_direct`` on phase
+    16's n1 = 16 MPS file, float64), each held to its own checks, with its seconds
     and K1's launches across them; then ``entry()``'s forward (25 CG
     iterations on the 64² Laplacian, float32) on the card against the
     same forward on the CPU within 1e-4 relative in x and ‖r‖.
@@ -175,10 +175,38 @@ Phases, each printing at least one line and each fatal when it fails:
     on the Cholesky's top-level trailing update (4096², k = 4096) beside
     the path's ``torch.matmul`` and ``torch.addmm``, with the recursion's
     whole matmul time (a measurement: the path stays ``torch.matmul``).
+23. the spectral tier (``lapack`` condense, tridiag_eig, spectral, funcs,
+    lattice's drivers; ``control``, ``io``, ``utils.roofline``; plain
+    torch, no kernel of the port on its path), float64 unless named, each
+    call timed with CUDA events beside the ``torch.linalg`` call that
+    computes the same function where there is one, with its group's peak
+    device memory and its relative (Frobenius) residuals, direct calls
+    gated at 1e-4 (float32) / 1e-12 (float64): at 8192²
+    ``hermitian_eig`` 'direct' in float32 and float64 beside ``eigh``,
+    ``inverse`` and ``hpd_inverse`` beside ``inv`` and ``cholesky`` +
+    ``cholesky_inverse``; at 4096² the blocked ``hermitian_tridiag``
+    (float32 and float64), ``hermitian_eig`` 'tridiag', the blocked
+    ``hessenberg``, ``bidiag`` and ``svd`` (float32 and float64) of 4096 ×
+    2048, with the Python loops' device operators counted; ``polar``,
+    ``sign``, ``square_root``, ``symmetric_inverse``, and ``sylvester``,
+    ``lyapunov`` (m = n = 2048) and ``ricatti_hamiltonian`` (n = 2048) at
+    their reference tests' gates, the iterative ones also on the card
+    against the CPU at 1024 within 1e-10; at 2048 the MRRR-slot solver on
+    the whole spectrum and on 64 eigenpairs (test_aux_tiers.py's gates,
+    against the CPU within 1e-10), the Sturm count against ``eigvalsh``'s
+    and the complex128 ``hermitian_tridiag``; at 1024 ``schur`` and ``eig``
+    on the host, ``triang_eig`` in complex128 in chunks and the unblocked
+    ``hessenberg``; ``pseudospectra`` of ``fox_li(512)`` over 64×64 shifts
+    (30 iterations), 16 of them at 200 iterations within 1e-2 of
+    ``svdvals`` and at 30 against the CPU; ``lanczos``, ``product_lanczos``
+    and ``extremal_singular_value_estimates`` on the unscaled 1024²
+    Laplacian's ``CSRDevice`` against the CPU and the analytic spectrum;
+    ``roofline.audit`` of K6 ``axpy`` at 8192² against ``bound()``; and an
+    ``io`` round trip of an 8192² tensor, bit for bit.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
-is longer, and the time of one PyTorch call that computes the same
+is longer, from ``utils.roofline``'s H100 SXM entry, and the time of one PyTorch call that computes the same
 function, or null), and as the last line
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without one (or
 without the package beside it) it exits non-zero and prints no result.
@@ -231,19 +259,19 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-# NVIDIA's H100 SXM data sheet: HBM3 bytes/s, and FLOP/s by dtype (bfloat16
-# and float64 on the tensor cores, float32 on the CUDA cores: K4's float32
-# is never TF32)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float64": 67e12, "float32": 67e12}
-
-
 def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32"):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the longer of the bytes at HBM_BYTES_PER_S and the FLOPs at the
-    dtype's peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    the longer of the bytes at the HBM rate and the FLOPs at the dtype's
+    peak, both from the H100 SXM entry of the port's
+    ``utils.roofline.CHIPS`` (NVIDIA's data sheet: bfloat16 and float64 on
+    the tensor cores, float32 on the CUDA cores, as K4's float32 is never
+    TF32)."""
+    from elemental_tpu_torch.utils.roofline import CHIPS
+    spec = CHIPS["h100 sxm"]
+    peak = {"bfloat16": spec.peak_bf16, "float64": spec.peak_f64,
+            "float32": spec.peak_f32}[dtype]
+    t_bytes = nbytes / spec.hbm_bw * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -2862,7 +2890,10 @@ DRIVERS = ["bp", "bp_complex", "bp_dense", "bpdn", "bpdn_dense", "cp",
            "helmholtz_solve", "sequential_least_squares", "different_grids",
            "remote_update", "least_squares", "linear_solve", "simple_solve",
            "symmetric_solve_ex", "lse", "glm", "tikhonov_ex", "gepp_growth",
-           "matrix_zoo"]
+           "matrix_zoo", "eig", "fox_li", "pseudospectra_portrait",
+           "triang_eig_ex", "pnorm", "product_lanczos_ex", "inv_pos",
+           "lattice_tools", "lll_reduction", "lll_singular", "control_ex",
+           "lcf"]
 
 
 def phase_drivers(mps_path: str) -> None:
@@ -3447,6 +3478,675 @@ def phase_lapack(seed: int) -> None:
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 23: the spectral tier
+SPEC_BIG = 8192         # hermitian_eig 'direct', inverse, hpd_inverse
+SPEC_MID = 4096         # the reductions, svd, the matrix functions
+SPEC_MRRR = 2048        # the tridiagonal eigensolver, complex128 tridiag
+SPEC_HOST = 1024        # schur, eig, triang_eig, the unblocked hessenberg
+SPEC_CTRL = 2048        # sylvester and lyapunov at m = n, ricatti's n
+SPEC_PARITY = 1024      # the iterative calls' card-against-CPU runs
+PSEUDO_N, PSEUDO_G = 512, 64
+LANCZOS_SIDE = 1024
+SPEC_GATE = {"float32": 1e-4, "float64": 1e-12}
+
+
+def _device_ops(fn):
+    """(fn()'s result, the aten operators it dispatched, views excluded):
+    about one kernel launch each, counted on the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def _scaled_ops(fn, make, n: int, nb: int = 32) -> int:
+    """The device operators of the blocked reduction ``fn(make(n))``, from
+    counts at two small sizes with n's last partial panel: every full
+    nb-column panel dispatches the same operators, whatever the size."""
+    small = 64 + (n - 64) % nb
+    counts = []
+    for m in (small, small + nb):
+        x = make(m)
+        counts.append(_device_ops(lambda: fn(x))[1])
+    return counts[0] + (n - small) // nb * (counts[1] - counts[0])
+
+
+def _peak(fn):
+    """(fn()'s result, the peak device memory it took, GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _ortho(q) -> float:
+    """‖QᴴQ − I‖_F / √n in float64."""
+    import torch
+    wide = torch.complex128 if q.is_complex() else torch.float64
+    q = q.to(wide)
+    eye = torch.eye(q.shape[1], dtype=wide, device=q.device)
+    return float(torch.linalg.norm(q.mH @ q - eye) / q.shape[1] ** 0.5)
+
+
+def _gate(label: str, value: float, gate: float) -> None:
+    check(value <= gate, f"{label}: {value:.3e} over {gate:g}")
+
+
+def _spec_eig(gen, tag: str) -> None:
+    """hermitian_eig 'direct' at SPEC_BIG² in float32 and float64 beside
+    torch.linalg.eigh; inverse and hpd_inverse (float64) beside inv and
+    cholesky + cholesky_inverse."""
+    import torch
+    from elemental_tpu_torch import lapack
+    n = SPEC_BIG
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+        a = (g + g.T) / 2
+        del g
+        (pair, peak) = _peak(lambda: lapack.hermitian_eig("L", a))
+        a64, q64 = a.double(), pair.q.double()
+        res = float(torch.linalg.norm(a64 @ q64 - q64 * pair.w.double())
+                    / torch.linalg.norm(a64))
+        orth = _ortho(pair.q)
+        del a64, q64
+        _gate(f"hermitian_eig {name} {n}² ‖AQ − QΛ‖/‖A‖", res,
+              SPEC_GATE[name])
+        _gate(f"hermitian_eig {name} {n}² ‖QᴴQ − I‖/√n", orth,
+              SPEC_GATE[name])
+        del pair
+        ms, lib_ms = time_pair(lambda: lapack.hermitian_eig("L", a),
+                               lambda: torch.linalg.eigh(a), 1, False)
+        print(f"[{tag}] hermitian_eig 'direct' {name} {n}²: {ms:.1f} ms, "
+              f"{ms / lib_ms:.3f}× torch.linalg.eigh ({lib_ms:.1f} ms); "
+              f"‖AQ − QΛ‖/‖A‖ {res:.3e}, ‖QᴴQ − I‖/√n {orth:.3e} (gate "
+              f"{SPEC_GATE[name]:g}); peak {peak:.2f} GiB")
+        del a
+        torch.cuda.empty_cache()
+    dtype = torch.float64
+    g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+    eye = torch.eye(n, device="cuda", dtype=dtype)
+    gs = g + 2 * n ** 0.5 * eye
+    spd = g @ g.T / n + eye
+    del g
+    for label, fn, lib, lib_name, a in (
+            ("inverse", lambda: lapack.inverse(gs),
+             lambda: torch.linalg.inv(gs), "torch.linalg.inv", gs),
+            ("hpd_inverse", lambda: lapack.hpd_inverse("L", spd),
+             lambda: torch.cholesky_inverse(torch.linalg.cholesky(spd)),
+             "torch.linalg.cholesky + cholesky_inverse", spd)):
+        x, peak = _peak(fn)
+        res = float(torch.linalg.norm(a @ x - eye)
+                    / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+        _gate(f"{label} float64 {n}² ‖AX − I‖/(‖A‖‖X‖)", res,
+              SPEC_GATE["float64"])
+        del x
+        ms, lib_ms = time_pair(fn, lib, 3, False)
+        print(f"[{tag}] {label} float64 {n}²: {ms:.2f} ms, "
+              f"{ms / lib_ms:.3f}× {lib_name} ({lib_ms:.2f} ms); "
+              f"‖AX − I‖/(‖A‖‖X‖) {res:.3e}; peak {peak:.2f} GiB")
+    del gs, spd, eye
+    torch.cuda.empty_cache()
+
+
+def _tridiag_res(a, t) -> tuple:
+    """(‖QᴴAQ − T‖/‖A‖, ‖QᴴQ − I‖/√n) in float64 (complex128)."""
+    import torch
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    a, q = a.to(wide), t.q.to(wide)
+    T = (torch.diag(t.d.to(wide)) + torch.diag(t.e.to(wide), 1)
+         + torch.diag(t.e.to(wide), -1))
+    return (float(torch.linalg.norm(q.mH @ a @ q - T) / torch.linalg.norm(a)),
+            _ortho(t.q))
+
+
+def _event_ms(fn):
+    """(fn()'s result, its ms between CUDA events on an idle card): one
+    launch of a call that is also checked."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _spec_reductions(gen, tag: str) -> None:
+    """At SPEC_MID: the blocked hermitian_tridiag (float32, float64),
+    hermitian_eig 'tridiag' beside eigh, the blocked hessenberg, the
+    blocked bidiag of SPEC_MID × SPEC_MID/2 and svd (float32, float64)
+    beside torch.linalg.svd.  The Python-loop reductions are launch-bound:
+    one checked launch is timed; their device operators are counted at
+    two small sizes and scaled by the panels (``_scaled_ops``)."""
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.lapack import condense
+    n = SPEC_MID
+
+    def small(m, cols=None):
+        return torch.randn(m, cols or m, generator=gen, device="cuda",
+                           dtype=torch.float64)
+
+    tri_ops = _scaled_ops(lambda x: condense._hermitian_tridiag_blocked(
+        "L", x), small, n)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+        a = (g + g.T) / 2
+        del g
+        (t, ms), peak = _peak(lambda: _event_ms(
+            lambda: lapack.hermitian_tridiag("L", a)))
+        res, orth = _tridiag_res(a, t)
+        _gate(f"hermitian_tridiag {name} {n}² ‖QᴴAQ − T‖/‖A‖", res,
+              SPEC_GATE[name])
+        _gate(f"hermitian_tridiag {name} {n}² ‖QᴴQ − I‖/√n", orth,
+              SPEC_GATE[name])
+        del t
+        print(f"[{tag}] hermitian_tridiag (blocked, nb = 32) {name} {n}²: "
+              f"{ms:.1f} ms, {tri_ops} device operators; ‖QᴴAQ − T‖/‖A‖ "
+              f"{res:.3e}, ‖QᴴQ − I‖/√n "
+              f"{orth:.3e} (gate {SPEC_GATE[name]:g}); peak {peak:.2f} GiB")
+        if dtype == torch.float64:
+            pair, ms = _event_ms(lambda: lapack.hermitian_eig(
+                "L", a, alg="tridiag"))
+            q = pair.q
+            res = float(torch.linalg.norm(a @ q - q * pair.w)
+                        / torch.linalg.norm(a))
+            orth = _ortho(q)
+            werr = float((pair.w - torch.linalg.eigvalsh(a)).abs().max()
+                         / pair.w.abs().max())
+            _gate(f"hermitian_eig 'tridiag' {n}² ‖AQ − QΛ‖/‖A‖", res,
+                  SPEC_GATE[name])
+            _gate(f"hermitian_eig 'tridiag' {n}² ‖QᴴQ − I‖/√n", orth,
+                  SPEC_GATE[name])
+            _gate(f"hermitian_eig 'tridiag' {n}² eigenvalues against "
+                  f"eigvalsh", werr, SPEC_GATE[name])
+            del pair, q
+            lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), 2, False)
+            print(f"[{tag}] hermitian_eig 'tridiag' float64 {n}²: "
+                  f"{ms:.1f} ms, {ms / lib_ms:.3f}× torch.linalg.eigh "
+                  f"({lib_ms:.1f} ms); ‖AQ − QΛ‖/‖A‖ {res:.3e}, ‖QᴴQ − I‖/√n "
+                  f"{orth:.3e}, eigenvalues within {werr:.3e} of eigvalsh")
+        del a
+        torch.cuda.empty_cache()
+    dtype = torch.float64
+    g = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+    (h, ms), peak = _peak(lambda: _event_ms(
+        lambda: lapack.hessenberg("L", g)))
+    ops = _scaled_ops(condense._hessenberg_blocked, small, n)
+    q = h.q
+    res = float(torch.linalg.norm(q @ h.h @ q.T - g) / torch.linalg.norm(g))
+    orth = _ortho(q)
+    below = float(torch.tril(h.h, -2).abs().max() / g.abs().max())
+    _gate(f"hessenberg {n}² ‖QHQᴴ − A‖/‖A‖", res, SPEC_GATE["float64"])
+    _gate(f"hessenberg {n}² ‖QᴴQ − I‖/√n", orth, SPEC_GATE["float64"])
+    _gate(f"hessenberg {n}² below the subdiagonal", below,
+          SPEC_GATE["float64"])
+    del h, q
+    print(f"[{tag}] hessenberg (blocked, n ≥ 3072) float64 {n}²: {ms:.1f} "
+          f"ms, {ops} device operators; ‖QHQᴴ − A‖/‖A‖ {res:.3e}, ‖QᴴQ − I‖"
+          f"/√n {orth:.3e}, below the subdiagonal {below:.1e} (the blocked "
+          f"path masks it); peak {peak:.2f} GiB")
+    b = g[:, :n // 2].contiguous()
+    del g
+    m2 = n // 2
+    (bd, ms), peak = _peak(lambda: _event_ms(lambda: lapack.bidiag(b)))
+    ops = _scaled_ops(condense._bidiag_blocked, lambda m: small(2 * m, m),
+                      m2)
+    B = torch.diag(bd.d) + torch.diag(bd.e, 1)
+    res = float(torch.linalg.norm(bd.u[:, :m2] @ B @ bd.v.T - b)
+                / torch.linalg.norm(b))
+    orth = max(_ortho(bd.u), _ortho(bd.v))
+    _gate(f"bidiag {n}×{m2} ‖UBVᴴ − A‖/‖A‖", res, SPEC_GATE["float64"])
+    _gate(f"bidiag {n}×{m2} ‖UᴴU − I‖, ‖VᴴV − I‖", orth,
+          SPEC_GATE["float64"])
+    del bd, B
+    print(f"[{tag}] bidiag (blocked) float64 {n}×{m2}: {ms:.1f} ms, {ops} "
+          f"device operators; ‖UBVᴴ − A‖/‖A‖ {res:.3e}, orthogonality "
+          f"{orth:.3e}; peak {peak:.2f} GiB")
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        a = b.to(dtype)
+
+        def svd_res(out):
+            return (float(torch.linalg.norm((out[0] * out[1]).double()
+                                            @ out[2].double() - a.double())
+                          / torch.linalg.norm(a.double())),
+                    max(_ortho(out[0]), _ortho(out[2].mH)))
+
+        out, peak = _peak(lambda: lapack.svd(a))
+        res, orth = svd_res(out)
+        _gate(f"svd {name} {n}×{m2} ‖UΣVᴴ − A‖/‖A‖", res, SPEC_GATE[name])
+        _gate(f"svd {name} {n}×{m2} orthogonality", orth, SPEC_GATE[name])
+        del out
+        lib_res, lib_orth = svd_res(torch.linalg.svd(a, full_matrices=False))
+        ms, lib_ms = time_pair(lambda: lapack.svd(a),
+                               lambda: torch.linalg.svd(
+                                   a, full_matrices=False), 1, False)
+        print(f"[{tag}] svd {name} {n}×{m2}: {ms:.1f} ms, {ms / lib_ms:.3f}× "
+              f"torch.linalg.svd's default ({lib_ms:.1f} ms, residual "
+              f"{lib_res:.3e}, orthogonality {lib_orth:.3e}); ‖UΣVᴴ − A‖/‖A‖ "
+              f"{res:.3e}, orthogonality {orth:.3e}; peak {peak:.2f} GiB")
+        del a
+    del b
+    torch.cuda.empty_cache()
+
+
+def _spec_functions(gen, tag: str) -> None:
+    """At SPEC_MID, float64: polar, sign (of V·diag(±λ)·Vᵀ, its exact sign
+    known), square_root (SPD) and symmetric_inverse; at SPEC_CTRL the
+    control solvers with their equations' residuals; the iterative calls
+    also on the CPU at SPEC_PARITY.  symmetric_inverse is timed beside ``torch.linalg.inv`` (cuSOLVER's
+    ``sytrf`` failed with an internal error at 4096 on the card)."""
+    import torch
+    from elemental_tpu_torch import control, lapack
+    n = SPEC_MID
+    dt = torch.float64
+    eye = torch.eye(n, device="cuda", dtype=dt)
+
+    def gauss(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
+
+    a_polar = gauss(n, n) / n ** 0.5 + 3 * eye
+    V, _ = torch.linalg.qr(gauss(n, n))
+    lam = (0.5 + 1.5 * torch.rand(n, generator=gen, device="cuda",
+                                  dtype=dt)) * torch.where(
+        torch.arange(n, device="cuda") % 2 == 0, 1.0, -1.0).to(dt)
+    a_sign = (V * lam) @ V.T
+    s_exact = (V * torch.sign(lam)) @ V.T
+    del V
+    g = gauss(n, n)
+    spd = g @ g.T / n + eye
+    sym = g + g.T + 6 * n ** 0.5 * eye
+    del g
+
+    def polar_res():
+        q, p = lapack.polar(a_polar)
+        return max(float(torch.linalg.norm(q @ p - a_polar)
+                         / torch.linalg.norm(a_polar)), _ortho(q))
+
+    def sign_res():
+        return _fro(lapack.sign(a_sign), s_exact)
+
+    def sqrt_res():
+        r = lapack.square_root(spd)
+        return float(torch.linalg.norm(r @ r - spd) / torch.linalg.norm(spd))
+
+    def syminv_res():
+        x = lapack.symmetric_inverse(sym)
+        return float(torch.linalg.norm(sym @ x - eye)
+                     / (torch.linalg.norm(sym) * torch.linalg.norm(x)))
+
+    cases = (
+        ("polar", lambda: lapack.polar(a_polar), polar_res, 1e-6, None, ""),
+        ("sign", lambda: lapack.sign(a_sign), sign_res, 1e-6, None, ""),
+        ("square_root", lambda: lapack.square_root(spd), sqrt_res, 1e-7,
+         None, ""),
+        ("symmetric_inverse", lambda: lapack.symmetric_inverse(sym),
+         syminv_res, SPEC_GATE["float64"], lambda: torch.linalg.inv(sym),
+         "torch.linalg.inv"))
+    for label, fn, resid, gate, lib, lib_name in cases:
+        res, peak = _peak(resid)
+        _gate(f"{label} float64 {n}²", res, gate)
+        if lib is None:
+            ms = cuda_ms(fn, 2, False)
+            beside = ""
+        else:
+            ms, lib_ms = time_pair(fn, lib, 1, False)
+            beside = f", {ms / lib_ms:.3f}× {lib_name} ({lib_ms:.1f} ms)"
+        print(f"[{tag}] {label} float64 {n}²: {ms:.1f} ms{beside}; "
+              f"residual {res:.3e} (gate {gate:g}); peak {peak:.2f} GiB")
+    del a_polar, a_sign, s_exact, spd, sym, eye
+    torch.cuda.empty_cache()
+
+    m = SPEC_CTRL
+    eye = torch.eye(m, device="cuda", dtype=dt)
+    g = gauss(m, m)
+    A = g @ g.T / m + 2 * eye
+    g = gauss(m, m)
+    B = g @ g.T / m + 2 * eye
+    X0 = gauss(m, m)
+    C = A @ X0 + X0 @ B
+    Cl = A @ (X0 + X0.T) + (X0 + X0.T) @ A.T
+    As = -2 * eye + 0.1 * gauss(m, m) / m ** 0.5
+    K, L = eye, 0.5 * eye
+    del g
+
+    def syl_res():
+        return _fro(control.sylvester(A, B, C), X0)
+
+    def lyap_res():
+        return _fro(control.lyapunov(A, Cl), X0 + X0.T)
+
+    def ric_res():
+        X = control.ricatti_hamiltonian(As, K, L)
+        return float(torch.linalg.norm(As.T @ X + X @ As + K - X @ L @ X)
+                     / torch.linalg.norm(K))
+
+    for label, fn, resid, what in (
+            ("sylvester", lambda: control.sylvester(A, B, C), syl_res,
+             f"m = n = {m}, ‖X − X₀‖/‖X₀‖"),
+            ("lyapunov", lambda: control.lyapunov(A, Cl), lyap_res,
+             f"n = {m}, ‖X − X₀‖/‖X₀‖"),
+            ("ricatti_hamiltonian",
+             lambda: control.ricatti_hamiltonian(As, K, L), ric_res,
+             f"n = {m} (W {2 * m}²), ‖AᵀX + XA + K − XLX‖/‖K‖")):
+        res, peak = _peak(resid)
+        _gate(f"{label} {what}", res, 1e-6)
+        ms = cuda_ms(fn, 2, False)
+        print(f"[{tag}] {label} float64 {what}: {ms:.1f} ms; residual "
+              f"{res:.3e} (gate 1e-6); peak {peak:.2f} GiB")
+    del A, B, C, Cl, X0, As, K, L, eye
+    torch.cuda.empty_cache()
+
+    # the iterative calls on the card against the CPU, same inputs
+    p = SPEC_PARITY
+    cpu = torch.Generator().manual_seed(23)
+    g = torch.randn(p, p, generator=cpu, dtype=dt)
+    e = torch.eye(p, dtype=dt)
+    a_pol, spd_p = g / p ** 0.5 + 3 * e, g @ g.T / p + e
+    a_sgn = g @ g.T / p - 0.5 * e
+    h = p // 2
+    Ah, Bh = spd_p[:h, :h] + e[:h, :h], spd_p[h:, h:] + e[h:, h:]
+    Ch = g[:h, h:]
+    Ash = -2 * e[:h, :h] + 0.1 * g[h:, :h] / h ** 0.5
+    worst = 0.0
+    for label, fn, args in (
+            ("polar", lambda x: lapack.polar(x)[0], (a_pol,)),
+            ("sign", lapack.sign, (a_sgn,)),
+            ("square_root", lapack.square_root, (spd_p,)),
+            ("sylvester", control.sylvester, (Ah, Bh, Ch)),
+            ("lyapunov", control.lyapunov, (Ah, Ch + Ch.T)),
+            ("ricatti_hamiltonian", control.ricatti_hamiltonian,
+             (Ash, e[:h, :h], 0.5 * e[:h, :h]))):
+        on_card = fn(*(x.cuda() for x in args)).cpu()
+        err = _fro(on_card, fn(*args))
+        _gate(f"{label} card against CPU at {p}", err, 1e-10)
+        worst = max(worst, err)
+    print(f"[{tag}] polar, sign, square_root, sylvester, lyapunov, ricatti "
+          f"at {p} (control {h}): card within {worst:.3e} of the CPU "
+          f"(gate 1e-10)")
+
+
+def _spec_tridiagonal(gen, tag: str) -> None:
+    """At SPEC_MRRR, float64: hermitian_tridiag_eig(alg='mrrr') on the
+    whole spectrum and on 64 eigenpairs (device operators and seconds; the
+    reference test's gates; against the CPU), the Sturm count against
+    eigvalsh's, and the complex128 hermitian_tridiag."""
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.lapack import condense
+    n = SPEC_MRRR
+    dt = torch.float64
+    cpu = torch.Generator().manual_seed(29)
+    d_h = torch.randn(n, generator=cpu, dtype=dt)
+    e_h = torch.randn(n - 1, generator=cpu, dtype=dt)
+    d, e = d_h.cuda(), e_h.cuda()
+    T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+    w_ref = torch.linalg.eigvalsh(T)
+    for label, sel in (("whole spectrum", None),
+                       ("subset of 64", (n // 2 - 32, n // 2 + 31))):
+        (w, Z), ms = _event_ms(lambda: lapack.hermitian_tridiag_eig(
+            d, e, alg="mrrr", select=sel))
+        want = w_ref if sel is None else w_ref[sel[0]:sel[1] + 1]
+        werr = float((w - want).abs().max() / w_ref.abs().max())
+        res = float((T @ Z - Z * w).abs().max())
+        orth = float((Z.T @ Z - torch.eye(Z.shape[1], device="cuda",
+                                           dtype=dt)).abs().max())
+        # the same Python loops dispatch the same operators on either
+        # device and for any number of targets: counted on the CPU run of
+        # the subset
+        run_cpu = (lambda: lapack.hermitian_tridiag_eig(
+            d_h, e_h, alg="mrrr", select=sel))
+        if sel is None:
+            wc, Zc = run_cpu()
+        else:
+            (wc, Zc), ops = _device_ops(run_cpu)
+        cw = float((w.cpu() - wc).abs().max() / wc.abs().max())
+        cz = float((Z.cpu() - Zc).abs().max())
+        _gate(f"mrrr {label}: eigenvalues against eigvalsh", werr,
+              1e-12)
+        _gate(f"mrrr {label}: max|TZ − ZΛ|", res, 1e-7)
+        _gate(f"mrrr {label}: max|ZᵀZ − I|", orth, 1e-5)
+        _gate(f"mrrr {label}: card against CPU", max(cw, cz), 1e-10)
+        print(f"[{tag}] hermitian_tridiag_eig 'mrrr' n = {n}, {label}: "
+              f"{ms / 1e3:.2f} s" + ("" if sel is None else
+                                     f", {ops} device operators (counted on "
+                                     f"the CPU run)") + "; eigenvalues within "
+              f"{werr:.3e} of eigvalsh, max|TZ − ZΛ| {res:.3e}, "
+              f"max|ZᵀZ − I| {orth:.3e}, card against CPU {max(cw, cz):.3e}")
+        del Z
+    lo, hi = float(w_ref[n // 4]) + 1e-9, float(w_ref[3 * n // 4]) + 1e-9
+    cnt, sec = wall(lambda: lapack.hermitian_tridiag_eig_estimate(d, e, lo,
+                                                                   hi))
+    want = int(((w_ref > lo) & (w_ref <= hi)).sum())
+    check(int(cnt) == want, f"hermitian_tridiag_eig_estimate {int(cnt)} "
+          f"against eigvalsh's {want}")
+    print(f"[{tag}] hermitian_tridiag_eig_estimate n = {n}: {int(cnt)} "
+          f"eigenvalues in (λ_{n // 4}, λ_{3 * n // 4}], as eigvalsh counts; "
+          f"{sec * 1e3:.1f} ms")
+    del T
+    g = torch.randn(n, n, generator=gen, device="cuda",
+                    dtype=torch.complex128)
+    a = (g + g.mH) / 2
+    del g
+    (t, peak) = _peak(lambda: lapack.hermitian_tridiag("L", a))
+    ops = _scaled_ops(
+        lambda x: condense._hermitian_tridiag_blocked("L", x),
+        lambda m: torch.randn(m, m, generator=gen, device="cuda",
+                              dtype=torch.complex128), n)
+    res, orth = _tridiag_res(a, t)
+    _gate(f"hermitian_tridiag complex128 {n}² ‖QᴴAQ − T‖/‖A‖", res,
+          SPEC_GATE["float64"])
+    _gate(f"hermitian_tridiag complex128 {n}² ‖QᴴQ − I‖/√n", orth,
+          SPEC_GATE["float64"])
+    del t
+    ms = cuda_ms(lambda: lapack.hermitian_tridiag("L", a), 2, False)
+    print(f"[{tag}] hermitian_tridiag (blocked) complex128 {n}²: {ms:.1f} "
+          f"ms, {ops} device operators; ‖QᴴAQ − T‖/‖A‖ {res:.3e}, "
+          f"‖QᴴQ − I‖/√n {orth:.3e}; peak {peak:.2f} GiB")
+    del a
+    torch.cuda.empty_cache()
+
+
+def _spec_host(gen, tag: str) -> None:
+    """At SPEC_HOST: schur and eig on the host (seconds), triang_eig in
+    complex128 chunked (peak), the unblocked hessenberg; pseudospectra on
+    fox_li(PSEUDO_N) over a PSEUDO_G² grid at 30 iterations, and 16 of the
+    shifts at 200 iterations against svdvals."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.matrices import fox_li
+    n = SPEC_HOST
+    dt = torch.float64
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=dt)
+    sch, sec = wall(lambda: lapack.schur(a))
+    a_c = a.to(torch.complex128)
+    res = float(torch.linalg.norm(sch.q @ sch.t @ sch.q.mH - a_c)
+                / torch.linalg.norm(a_c))
+    _gate(f"schur {n}² ‖QTQᴴ − A‖/‖A‖", res, SPEC_GATE["float64"])
+    check(sch.t.is_cuda, "schur's factors are not on the card")
+    (w, v), sec_eig = wall(lambda: lapack.eig(a))
+    eres = float(torch.linalg.norm(a_c @ v - v * w) / torch.linalg.norm(a_c))
+    _gate(f"eig {n}² ‖AV − VΛ‖/‖A‖", eres, 1e-10)
+    print(f"[{tag}] schur {n}² on the host (scipy): {sec:.2f} s, ‖QTQᴴ − "
+          f"A‖/‖A‖ {res:.3e}; eig {n}² on the host (NumPy): {sec_eig:.2f} s, "
+          f"‖AV − VΛ‖/‖A‖ {eres:.3e}")
+    t = sch.t
+    X, peak = _peak(lambda: lapack.triang_eig(t))
+    tres = float(torch.linalg.norm(t @ X - X * torch.diagonal(t))
+                 / torch.linalg.norm(t))
+    _gate(f"triang_eig complex128 {n}² ‖TX − XΛ‖/‖T‖", tres, 1e-10)
+    ms = cuda_ms(lambda: lapack.triang_eig(t), 2, False)
+    from elemental_tpu_torch.lapack.spectral import _chunk
+    print(f"[{tag}] triang_eig complex128 {n}² in chunks of "
+          f"{_chunk(n, t.dtype)}: {ms:.1f} ms, ‖TX − XΛ‖/‖T‖ "
+          f"{tres:.3e}; peak {peak:.2f} GiB (one batch: "
+          f"{n ** 3 * 16 / 2 ** 30:.0f} GiB of shifted matrices)")
+    del sch, X, t, w, v, a_c
+    h, sec = wall(lambda: lapack.hessenberg("L", a))
+    res = float(torch.linalg.norm(h.q @ h.h @ h.q.T - a)
+                / torch.linalg.norm(a))
+    _gate(f"hessenberg unblocked {n}² ‖QHQᴴ − A‖/‖A‖", res,
+          SPEC_GATE["float64"])
+    print(f"[{tag}] hessenberg (rank-1 loop, n < 3072) float64 {n}²: "
+          f"{sec * 1e3:.1f} ms; ‖QHQᴴ − A‖/‖A‖ {res:.3e}")
+    del a, h
+    torch.cuda.empty_cache()
+
+    A = fox_li(PSEUDO_N, 16.0, device="cuda")
+    re = np.linspace(-1.1, 1.1, PSEUDO_G)
+    shifts = torch.from_numpy((re[:, None] + 1j * re[None, :]).reshape(-1))
+    (smin, sec), peak = _peak(lambda: wall(
+        lambda: lapack.pseudospectra(A, shifts, iters=30)))
+    check(bool(torch.isfinite(smin).all()) and float(smin.min()) >= 0,
+          "pseudospectra: a σ_min not finite and non-negative")
+    pick = torch.from_numpy(np.random.default_rng(0).choice(
+        PSEUDO_G ** 2, 16, replace=False))
+    sub = shifts[pick]
+    s200 = lapack.pseudospectra(A, sub, iters=200).cpu()
+    eye = torch.eye(PSEUDO_N, dtype=A.dtype, device="cuda")
+    true = torch.stack([torch.linalg.svdvals(A - z * eye)[-1]
+                        for z in sub.tolist()]).cpu()
+    rel = float(((s200 - true).abs() / true).max())
+    _gate("pseudospectra at 200 iterations against svdvals", rel, 1e-2)
+    s30 = lapack.pseudospectra(A, sub, iters=30).cpu()
+    cpu30 = lapack.pseudospectra(A.cpu(), sub, iters=30)
+    cerr = float(((s30 - cpu30).abs() / cpu30).max())
+    _gate("pseudospectra card against CPU (16 shifts, 30 iterations)",
+          cerr, 1e-10)
+    print(f"[{tag}] pseudospectra of fox_li({PSEUDO_N}) over "
+          f"{PSEUDO_G}×{PSEUDO_G} shifts, 30 iterations: {sec:.2f} s "
+          f"(schur included), σ_min in [{float(smin.min()):.3e}, "
+          f"{float(smin.max()):.3e}]; peak {peak:.2f} GiB; 16 shifts at 200 "
+          f"iterations within {rel:.3e} of svdvals (gate 1e-2), at 30 the "
+          f"card within {cerr:.3e} of the CPU")
+    del A, eye
+    torch.cuda.empty_cache()
+
+
+def _spec_lanczos(tag: str) -> None:
+    """lanczos, product_lanczos and extremal_singular_value_estimates on the
+    unscaled LANCZOS_SIDE² Laplacian's CSRDevice from a given v0: against
+    the CPU, and the Ritz values inside the analytic spectrum."""
+    import math
+    import torch
+    from elemental_tpu_torch import lapack
+    from elemental_tpu_torch.matrices import sparse_laplacian_2d
+    s = LANCZOS_SIDE
+    A = sparse_laplacian_2d(s, s, scaled=False)
+    N = A.height
+    v0 = torch.randn(N, generator=torch.Generator().manual_seed(31),
+                     dtype=torch.float64)
+    lam_min = 8 * math.sin(math.pi / (2 * (s + 1))) ** 2
+    lam_max = 8 - lam_min
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        M = A.device_csr(device=dev, dtype=torch.float64)
+        v = v0.to(dev)
+        (T1, sec) = wall(lambda: lapack.lanczos(N, M.matvec, 20, v0=v)) \
+            if dev == "cuda" else (lapack.lanczos(N, M.matvec, 20, v0=v), 0)
+        T2 = lapack.product_lanczos(M, 20, v0=v)
+        ext = torch.stack(lapack.extremal_singular_value_estimates(M, 20,
+                                                                   v0=v))
+        runs[dev] = (T1.cpu(), T2.cpu(), ext.cpu(), sec)
+    card, host = runs["cuda"], runs["cpu"]
+    err = max(float((c - h).abs().max() / h.abs().max())
+              for c, h in zip(card[:3], host[:3]))
+    _gate("Lanczos family card against CPU", err, 1e-10)
+    r1 = torch.linalg.eigvalsh(card[0])
+    r2 = torch.linalg.eigvalsh(card[1])
+    slack = 1e-10
+    check(float(r1.min()) >= lam_min * (1 - slack)
+          and float(r1.max()) <= lam_max * (1 + slack),
+          f"lanczos Ritz values [{float(r1.min())}, {float(r1.max())}] "
+          f"outside [{lam_min}, {lam_max}]")
+    check(float(r2.min()) >= lam_min ** 2 * (1 - slack)
+          and float(r2.max()) <= lam_max ** 2 * (1 + slack),
+          "product_lanczos Ritz values outside [λ_min², λ_max²]")
+    smin, smax = card[2].tolist()
+    print(f"[{tag}] lanczos on the {s}² Laplacian (n = {N}), 20 steps: "
+          f"{card[3] * 1e3:.1f} ms, Ritz values [{float(r1.min()):.6f},"
+          f" {float(r1.max()):.6f}] inside [{lam_min:.3e}, {lam_max:.6f}]; "
+          f"product_lanczos [{float(r2.min()):.6f}, {float(r2.max()):.6f}]; "
+          f"σ estimates [{smin:.6f}, {smax:.6f}]; card within {err:.3e} of "
+          f"the CPU")
+
+
+def _spec_roofline_io(tag: str) -> None:
+    """roofline.audit of K6 axpy at 8192² against bound(); an io.write and
+    read of an 8192² float64 tensor from the card, bit for bit."""
+    import torch
+    from elemental_tpu_torch import io as elio
+    from elemental_tpu_torch.kernels import elementwise as ew
+    from elemental_tpu_torch.utils import roofline
+    n = 8192
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn(n, n, generator=gen, device="cuda")
+    y = torch.randn(n, n, generator=gen, device="cuda")
+    nbytes = 3 * 4 * n * n
+    spec = roofline.chip_specs()
+    rep = roofline.audit(lambda v: ew.axpy(1e-3, v, y), x, flops=2 * n * n,
+                         bytes_accessed=nbytes, dtype=torch.float32,
+                         spec=roofline.CHIPS["h100 sxm"])
+    b_ms, b_by = bound(nbytes, 2 * n * n)
+    check(abs(rep.sol_seconds * 1e3 - b_ms) <= 1e-12 * b_ms
+          and b_by == "bytes" and rep.bound == "memory",
+          f"audit's bound {rep.sol_seconds * 1e3} ms against bound()'s "
+          f"{b_ms} ms")
+    check(rep.sol_fraction <= 1.05, f"axpy at {rep.sol_fraction:.3f} of the "
+          f"bound's speed")
+    print(f"[{tag}] roofline.audit of K6 axpy at {n}² (spec {spec.name} by "
+          f"the card's name): {rep}; bound {b_ms:.4f} ms = bound()'s")
+    del x, y
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.bin")
+        _, sec_w = wall(lambda: elio.write(path, a))
+        back, sec_r = wall(lambda: elio.read(path, device="cuda"))
+    check(back.is_cuda and torch.equal(back, a), "io round trip changed "
+          "the bits")
+    print(f"[{tag}] io.write/read of an {n}² float64 tensor from the card: "
+          f"bits equal; write {sec_w:.2f} s, read {sec_r:.2f} s")
+    del a, back
+    torch.cuda.empty_cache()
+
+
+def phase_spectral(seed: int) -> None:
+    """23: the spectral tier on the card (see the module docstring).  Every
+    gate is fatal."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = "23 spectral"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t_phase = time.perf_counter()
+    for part in (_spec_eig, _spec_reductions, _spec_functions,
+                 _spec_tridiagonal, _spec_host):
+        t0 = time.perf_counter()
+        part(gen, tag)
+        print(f"[{tag}] {part.__name__[6:]}: {time.perf_counter() - t0:.1f} s")
+    for part in (_spec_lanczos, _spec_roofline_io):
+        t0 = time.perf_counter()
+        part(tag)
+        print(f"[{tag}] {part.__name__[6:]}: {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -3470,7 +4170,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-22 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-23 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -3539,8 +4239,9 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     phase_sparse_products(args.seed)
     phase_drivers(os.path.join(tmp, "gen16.mps"))
     phase_lapack(args.seed)
+    phase_spectral(args.seed)
 
-    print(f"[1-22] every phase, the kernels' build included, took "
+    print(f"[1-23] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",

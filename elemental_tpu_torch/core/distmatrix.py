@@ -375,8 +375,7 @@ class DistMatrix:
 
     # -- numpy interop -----------------------------------------------------
     def to_numpy(self) -> np.ndarray:
-        return self.assemble().detach().cpu().resolve_conj() \
-            .resolve_neg().numpy()
+        return as_numpy(self)
 
     def __repr__(self) -> str:
         return (f"DistMatrix(shape={self.shape}, dtype={self.dtype}, "
@@ -413,6 +412,12 @@ def as_array(A) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(A))
 
 
+def as_numpy(A) -> np.ndarray:
+    """The whole matrix (:func:`as_array`) as a host NumPy array, from any
+    device."""
+    return as_array(A).detach().cpu().resolve_conj().resolve_neg().numpy()
+
+
 def like(A, data) -> "DistMatrix | torch.Tensor":
     """Cut ``data`` by A's distribution if A is distributed."""
     if isinstance(A, DistMatrix):
@@ -427,4 +432,5 @@ def grid_of(*mats) -> Optional[Grid]:
     return None
 
 
-__all__ = ["DistMatrix", "as_array", "distribute", "grid_of", "like"]
+__all__ = ["DistMatrix", "as_array", "as_numpy", "distribute", "grid_of",
+           "like"]

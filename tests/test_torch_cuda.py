@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA card (and nvcc): K1-K7 and the
 stream gather against their plain versions on the card, the wrappers'
 refusals, and the factor, the LP, the SpMV planner (the bridged tier
-included), CG, the dense core, the sparse products, a distributed matvec
-and a conic driver on the card against the same code on the CPU or the
+included), CG, the dense core, the sparse products, a distributed matvec,
+a conic driver, the dense factors and the spectral tier on the card
+against the same code on the CPU or the
 library call.  Every test
 is marked ``cuda``
 and skips without a card.  The file imports no JAX, so it also runs where
@@ -1615,3 +1616,89 @@ def test_refined_solve_dd_on_card_cholesky(cuda):
     err_f32 = np.abs(_host(solve(torch.from_numpy(b).to(cuda)))
                      - x_true).max() / np.abs(x_true).max()
     assert err_dd < 1e-10 and err_dd < 1e-2 * err_f32, (err_dd, err_f32)
+
+
+def test_hermitian_tridiag_f32_on_card_has_no_tf32(cuda):
+    """The blocked tridiagonalization at 1024 in float32 on the card, with
+    the caller's TF32 flag on: ‖QᵀAQ − T‖/‖A‖ ≤ 1e-5 in float64 on the
+    host (TF32 in the panel products would read about 1e-3), flag
+    restored."""
+    from elemental_tpu_torch import lapack
+    n = 1024
+    g = np.random.default_rng(41).standard_normal((n, n))
+    a = ((g + g.T) / 2).astype(np.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        t = lapack.hermitian_tridiag("L", torch.from_numpy(a).to(cuda))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    q = _host(t.q).astype(np.float64)
+    T = (np.diag(_host(t.d)) + np.diag(_host(t.e), 1)
+         + np.diag(_host(t.e), -1)).astype(np.float64)
+    a64 = a.astype(np.float64)
+    res = np.linalg.norm(q.T @ a64 @ q - T) / np.linalg.norm(a64)
+    assert res <= 1e-5, res
+    assert np.linalg.norm(q.T @ q - np.eye(n)) / np.sqrt(n) <= 1e-5
+
+
+def test_triang_eig_chunked_on_card_matches_unchunked(cuda, monkeypatch):
+    """triang_eig at 256 in complex128 on the card: batches of 16 columns
+    agree with one batch of 256 within 1e-12 (cuBLAS's batched trsm may
+    take another kernel for another batch size, so the bits may differ),
+    and T·X = X·Λ."""
+    from elemental_tpu_torch.lapack import spectral, triang_eig
+    n = 256
+    rng = np.random.default_rng(42)
+    t = np.triu(rng.standard_normal((n, n)) + 1j * rng.standard_normal(
+        (n, n))) + np.diag(np.arange(n))
+    T = torch.from_numpy(t).to(cuda)
+    monkeypatch.setattr(spectral, "_CHUNK_BYTES", n ** 3 * 16)
+    one_batch = _host(triang_eig(T))
+    monkeypatch.setattr(spectral, "_CHUNK_BYTES", 16 * n * n * 16)
+    x = _host(triang_eig(T))
+    assert np.abs(x - one_batch).max() <= 1e-12
+    res = np.abs(t @ x - x * np.diag(t)[None, :]).max() / np.abs(t).max()
+    assert res < 1e-10, res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sign_iterations_on_card_match_cpu(cuda, dtype, monkeypatch):
+    """The matrix sign function stops on the same iteration on the card as
+    on the CPU (one host read of the change an iteration), and agrees."""
+    from elemental_tpu_torch.lapack import sign
+    n = 64
+    g = np.random.default_rng(43).standard_normal((n, n))
+    a = torch.from_numpy(g @ g.T / n - 0.5 * np.eye(n)).to(dtype)
+    real = torch.linalg.inv
+    counts = []
+
+    def counted(x):
+        counts[-1] += 1
+        return real(x)
+
+    monkeypatch.setattr(torch.linalg, "inv", counted)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        counts.append(0)
+        out.append(_host(sign(a.to(dev))))
+    assert counts[0] == counts[1], counts
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert np.abs(out[0] - out[1]).max() <= tol
+
+
+def test_product_lanczos_csr_device_on_card_matches_cpu(cuda):
+    """product_lanczos on a CSRDevice (the adjoint from its swapped
+    triplets) from the same v0: the card's T within 1e-10 of the CPU's."""
+    from elemental_tpu_torch.lapack import product_lanczos
+    A = sparse_laplacian_2d(32, 32, scaled=False)
+    v0 = torch.from_numpy(np.random.default_rng(44).standard_normal(
+        A.width))
+    Ts = [product_lanczos(A.device_csr(device=dev, dtype=torch.float64),
+                          basis_size=30, v0=v0.to(dev))
+          for dev in (torch.device("cpu"), cuda)]
+    assert Ts[1].is_cuda
+    err = np.abs(_host(Ts[1]) - _host(Ts[0])).max() / np.abs(
+        _host(Ts[0])).max()
+    assert err <= 1e-10, err

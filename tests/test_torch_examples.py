@@ -18,7 +18,10 @@ DRIVERS = ["lp_direct_large", "cg_laplacian", "helmholtz_solve",
            "sequential_least_squares", "different_grids", "remote_update",
            "least_squares", "linear_solve", "simple_solve",
            "symmetric_solve_ex", "lse", "glm", "tikhonov_ex", "gepp_growth",
-           "matrix_zoo"]
+           "matrix_zoo", "eig", "fox_li", "pseudospectra_portrait",
+           "triang_eig_ex", "pnorm", "product_lanczos_ex", "inv_pos",
+           "lattice_tools", "lll_reduction", "lll_singular", "control_ex",
+           "lcf"]
 
 # min x1 + 2·x2 − x3  s.t.  x1 + x2 = 4,  x1 + x3 ≤ 3,  x2 + x3 ≥ 1,
 # x ≥ 0,  x3 ≤ 2

@@ -199,6 +199,12 @@ def test_lp_direct_matches_reference(case, monkeypatch):
     np.testing.assert_allclose(got.x, ref.x, atol=1e-6)
 
 
+SPECTRAL_DRIVERS = ("eig", "fox_li", "pseudospectra_portrait",
+                    "triang_eig_ex", "pnorm", "product_lanczos_ex",
+                    "inv_pos", "lattice_tools", "lll_reduction",
+                    "lll_singular", "control_ex", "lcf")
+
+
 def test_port_imports_without_jax():
     """The port imports with JAX blocked (the machine with the card has
     none)."""
@@ -242,6 +248,16 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.lapack.solve\n"
             "import elemental_tpu_torch.examples.gepp_growth\n"
             "import elemental_tpu_torch.examples.matrix_zoo\n"
+            "import elemental_tpu_torch.lapack.condense\n"
+            "import elemental_tpu_torch.lapack.tridiag_eig\n"
+            "import elemental_tpu_torch.lapack.spectral\n"
+            "import elemental_tpu_torch.lapack.funcs\n"
+            "import elemental_tpu_torch.lapack.lattice\n"
+            "import elemental_tpu_torch.control\n"
+            "import elemental_tpu_torch.io\n"
+            "import elemental_tpu_torch.utils.roofline\n"
+            + "".join(f"import elemental_tpu_torch.examples.{name}\n"
+                      for name in SPECTRAL_DRIVERS) +
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'elemental_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
