@@ -203,6 +203,26 @@ Phases, each printing at least one line and each fatal when it fails:
     Laplacian's ``CSRDevice`` against the CPU and the analytic spectrum;
     ``roofline.audit`` of K6 ``axpy`` at 8192² against ``bound()``; and an
     ``io`` round trip of an 8192² tensor, bit for bit.
+24. the distributed sparse-direct tier (``sparse_direct/dist_front.py``,
+    ``numeric.factor(grid=...)``, ``DistSparseLDLFactorization``; K1 on
+    its path): the unscaled 48³ Laplacian (N = 110,592), ordered by nested
+    dissection (cutoff 64) in a worker beside phase 3 and analysed once
+    (relax 8, size buckets 1.5), on a 2×2 grid over the card, ``spd=True``,
+    the default thresholds (the distributed front from S = 1536 on levels
+    of ≤ 8 fronts, the batch split at nf·S³ ≥ 2e9), which levels took
+    each tier; in float64 and float32 the grid's factor and the
+    one-device ``SparseLDLFactorization`` of the same plan, each best of 3
+    on the host clock with GF/s from ``factor_gflops()``, K1 launched once
+    a level with an extend-add in every grid factor and held against the
+    plain extend-add on the first, the transfer log's bytes equal to the
+    tiers' formula, the fronts' lower triangles and d within 1e-10
+    (float64) / 1e-4 (float32) of max|pool| of the one-device factor's,
+    the solve residual under ``residual_bound()``, in float32 the refined
+    solve under 1e-5, peak GiB, and in float64 one grid and one
+    one-device factor under ``torch.profiler`` (kernels launched, device
+    busy share); then ``entry.dryrun_multichip(4)`` at its
+    default 32³ with the weak-scaling table over 1, 2 and 4 positions
+    (one card, repeated positions: bytes, no speed-up).
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -1490,9 +1510,11 @@ def ordering_job(kind: str, arg, seed: int):
     """Host analysis of one at-scale pattern, run in a worker process: the
     fill ordering (nested dissection; the grid's natural nested dissection
     for "complex"), the symbolic analysis and the extend-add plan.  ``arg``
-    is --n1, the MPS file's path for "mps", "2d" or "3d" for "complex".
-    Returns a dict: the ordering (``perm``), N, nnz, the levels with an
-    extend-add and the seconds taken."""
+    is --n1, the MPS file's path for "mps", "2d" or "3d" for "complex",
+    the side for "lap3d" (phase 24's 3-D Laplacian, whose ordering alone
+    is taken here: its plan is too large to send back).  Returns a dict:
+    the ordering (``perm``), N, nnz, the levels with an extend-add and the
+    seconds taken."""
     import torch
     from elemental_tpu_torch.lapack.sparse_min import _ls_system, _lse_system
     from elemental_tpu_torch.optimization.lp import (_build_affine_kkt,
@@ -1507,6 +1529,12 @@ def ordering_job(kind: str, arg, seed: int):
     torch.set_num_threads(1)
     cpu = dict(device="cpu", dtype=torch.float32)
     t0 = time.perf_counter()
+    if kind == "lap3d":
+        from elemental_tpu_torch.matrices import sparse_laplacian_3d
+        A = sparse_laplacian_3d(arg, arg, arg, scaled=False)
+        return dict(perm=nested_dissection(A, cutoff=64), N=A.height,
+                    nnz=A.nnz, levels=None,
+                    seconds=time.perf_counter() - t0)
     if kind == "mps":
         A = mps_to_standard(read_mps(arg))[0]
         kkt, _ = _build_lp_kkt(sparse_ruiz(A)[0], 1e-2, 1e-2, None, **cpu)
@@ -1561,8 +1589,8 @@ def dense_last_ordering(K):
 
 def start_ipm_analyses(n1: int, seed: int, tmp: str):
     """Write phase 16's MPS file into ``tmp`` and start the host analysis
-    of the six at-scale patterns of phases 14-17 and the two of phase 18
-    (``ordering_job``), one spawned process each, so no CUDA state is
+    of the six at-scale patterns of phases 14-17, the two of phase 18 and
+    phase 24's ordering (``ordering_job``), one spawned process each, so no CUDA state is
     shared, while the caller goes on.  Returns (the MPS file's path, what
     read_mps must give back, ``wait``); ``wait()`` returns the analyses by
     name once every process has ended."""
@@ -1577,7 +1605,7 @@ def start_ipm_analyses(n1: int, seed: int, tmp: str):
     jobs = [("qp", "qp", n1), ("lp_affine", "lp_affine", n1),
             ("socp", "socp", n1), ("mps", "mps", path), ("ls", "ls", n1),
             ("lse", "lse", n1), ("c2d", "complex", "2d"),
-            ("c3d", "complex", "3d")]
+            ("c3d", "complex", "3d"), ("lap48", "lap3d", DIST_LAP)]
     t0 = time.perf_counter()
     pool = ProcessPoolExecutor(len(jobs), mp_context=multiprocessing
                                .get_context("spawn"))
@@ -1591,12 +1619,13 @@ def start_ipm_analyses(n1: int, seed: int, tmp: str):
         finally:
             pool.shutdown(cancel_futures=True)
         t_end = time.perf_counter()
-        print(f"[14-18] host analysis of {len(jobs)} patterns, one process "
-              f"each, beside the LP's: {t_end - t0:.1f} s from their start, "
-              f"{t_end - t_wait:.1f} s of it waited for; " + "; ".join(
-                  f"{name} N={o['N']} nnz={o['nnz']}, {o['levels']} levels "
-                  f"with an extend-add, {o['seconds']:.1f} s"
-                  for name, o in out.items()))
+        print(f"[14-18, 24] host analysis of {len(jobs)} patterns, one "
+              f"process each, beside the LP's: {t_end - t0:.1f} s from their "
+              f"start, {t_end - t_wait:.1f} s of it waited for; " + "; ".join(
+                  f"{name} N={o['N']} nnz={o['nnz']}, " + (
+                      "the ordering" if o["levels"] is None else
+                      f"{o['levels']} levels with an extend-add")
+                  + f", {o['seconds']:.1f} s" for name, o in out.items()))
         return out
 
     return path, expect, wait
@@ -4147,6 +4176,197 @@ def phase_spectral(seed: int) -> None:
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+DIST_LAP = 48            # phase 24's 3-D Laplacian: DIST_LAP³ rows
+DIST_GATE = {"float32": 1e-4, "float64": 1e-10}
+
+
+def dist_tiers(symb, grid, dist_front_min: int) -> dict:
+    """24: which levels of ``symb`` the grid's factor gives to each tier
+    (``numeric.factor``'s rules): the level indices, by tier."""
+    from elemental_tpu_torch.sparse_direct import numeric
+    out = {"dist_front": [], "split": [], "plain": []}
+    for li, lev in enumerate(symb.levels):
+        nf, S = lev.sn_ids.shape[0], lev.front_size
+        if S >= dist_front_min and nf <= 8:
+            out["dist_front"].append(li)
+        elif nf >= grid.size and nf * S ** 3 >= numeric.SPLIT_MIN_WORK:
+            out["split"].append(li)
+        else:
+            out["plain"].append(li)
+    return out
+
+
+def dist_bytes(symb, grid, tiers: dict, itemsize: int) -> int:
+    """24: the bytes a grid factor must record across positions: each
+    distributed front's panel gathers ((P − 1)·rows·nb elements a position
+    a panel holding a pivot) and its replication ((P − 1)·S²), and each
+    split level's replication (every position receives the chunks it does
+    not hold; the split is over every axis)."""
+    from elemental_tpu_torch.sparse_direct.dist_front import (PANEL,
+                                                              padded_size)
+    P = grid.size
+    total = 0
+    for li in tiers["dist_front"]:
+        lev = symb.levels[li]
+        S = lev.front_size
+        rl = padded_size(S, PANEL, P) // P
+        for ns in lev.ns:
+            total += -(-int(ns) // PANEL) * P * (P - 1) * rl * PANEL
+            total += (P - 1) * S * S
+    for li in tiers["split"]:
+        lev = symb.levels[li]
+        nf, S = lev.sn_ids.shape[0], lev.front_size
+        size = -(-nf // P)
+        total += sum(nf - max(0, min(size, nf - c * size))
+                     for c in range(P)) * S * S
+    return total * itemsize
+
+
+def lower_fronts(f) -> list:
+    """24: each level's fronts' lower triangles (the entries the factor
+    defines and the solves read; above the diagonal the LDL elimination
+    and the Cholesky kernel leave different values)."""
+    import torch
+    return [torch.tril(f.numeric._level_fronts(lev)) for lev in f.symb.levels]
+
+
+def best_wall(fn, reps: int = 3) -> float:
+    """Least seconds of ``fn()`` over ``reps`` runs (``wall``)."""
+    return min(wall(fn)[1] for _ in range(reps))
+
+
+def phase_dist_ldl(seed: int, order: dict) -> int:
+    """24: the distributed sparse-direct tier on a 2×2 grid over the card
+    (see the module docstring).  Returns K1's launches in the grid
+    factors."""
+    import copy
+    import numpy as np
+    import torch
+    from elemental_tpu_torch import entry as port_entry
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    from elemental_tpu_torch.matrices import sparse_laplacian_3d
+    from elemental_tpu_torch.sparse import DistSparseMatrix
+    from elemental_tpu_torch.sparse_direct import (DistSparseLDLFactorization,
+                                                   SparseLDLFactorization)
+    from elemental_tpu_torch.utils.transfers import count_transfers
+    tag = "24 dist LDL"
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    A = sparse_laplacian_3d(DIST_LAP, DIST_LAP, DIST_LAP, scaled=False)
+    grid = Grid([card] * 4, height=2)
+    base = DistSparseLDLFactorization(dtype=torch.float64, spd=True)
+    _, t_init = wall(lambda: base.initialize(
+        DistSparseMatrix.from_sparse(A, grid), perm=order["perm"],
+        size_bucket=1.5))
+    symb = base.symb
+    tiers = dist_tiers(symb, grid, base.dist_front_min)
+    check(tiers["dist_front"] and tiers["split"],
+          f"{DIST_LAP}³: a tier took no level at the default thresholds: "
+          f"{ {k: len(v) for k, v in tiers.items()} }")
+    sizes = [symb.levels[li].front_size for li in tiers["dist_front"]]
+    fronts = sum(symb.levels[li].sn_ids.shape[0]
+                 for li in tiers["dist_front"])
+    sum_ns = sum(int(symb.levels[li].ns.sum()) for li in tiers["dist_front"])
+    gflop = base.factor_gflops()
+    levels = len(base.ea_plan.levels)
+    print(f"[{tag}] {DIST_LAP}³ Laplacian, N={A.height}, 2×2 grid over the "
+          f"card: {symb.num_levels} levels, {levels} with an extend-add, "
+          f"pool {symb.pool_size} entries; distributed front on "
+          f"{len(tiers['dist_front'])} levels ({fronts} fronts, S "
+          f"{min(sizes)}-{max(sizes)}, Σns = {sum_ns} columns, "
+          f"dist_front_min {base.dist_front_min}), batch split on "
+          f"{len(tiers['split'])} levels {tiers['split']}, plain on "
+          f"{len(tiers['plain'])}; {gflop:.1f} GFLOP a factor; initialize "
+          f"{t_init:.1f} s with the worker's ordering "
+          f"({order['seconds']:.1f} s)")
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal(A.height)
+    Ssc = A.to_scipy()
+    launches = 0
+    for dtype in (torch.float64, torch.float32):
+        dt = str(dtype)[6:]
+        fg = copy.copy(base)
+        fg.dtype, fg.numeric = dtype, None
+        f1 = SparseLDLFactorization(device=card, dtype=dtype, spd=True)
+        f1.A, f1.symb, f1.ea_plan = base.A, base.symb, base.ea_plan
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        extend_add.launches = 0
+        with count_transfers() as log, FirstFactor() as first:
+            _, t_first = wall(fg.factor)
+        n_k1 = extend_add.launches
+        check(n_k1 == levels, f"{dt}: K1 launched {n_k1} times in a grid "
+              f"factor, {levels} levels with an extend-add")
+        aud = log.audit()
+        want = dist_bytes(symb, grid, tiers, torch.finfo(dtype).bits // 8)
+        check(log.bytes() == log.bytes("all-gather") == want,
+              f"{dt}: the grid factor recorded {log.bytes()} bytes, the "
+              f"tiers' formula {want}")
+        extend_add.launches = 0
+        t_grid = best_wall(fg.factor)
+        n_k1 += extend_add.launches
+        launches += n_k1
+        peak_grid = torch.cuda.max_memory_allocated() / 2 ** 30
+        f1.factor()
+        t_one = best_wall(f1.factor)
+        lo_g, lo_1 = lower_fronts(fg), lower_fronts(f1)
+        scale = max(float(t.abs().max()) for t in lo_1)
+        err = max(float((a - c).abs().max()) for a, c in zip(lo_g, lo_1))
+        err_d = float((fg.numeric.d - f1.numeric.d).abs().max())
+        del lo_g, lo_1
+        gate = DIST_GATE[dt]
+        check(err <= gate * scale and err_d <= gate * scale,
+              f"{dt}: grid factor {err:.3e} (pool) / {err_d:.3e} (d) from "
+              f"the one-device factor, gate {gate:g}·{scale:.3e}")
+        x = fg.solve(b).cpu().double().numpy()
+        res = float(np.linalg.norm(Ssc @ x - b) / np.linalg.norm(b))
+        bound = fg.residual_bound()
+        check(np.isfinite(res) and res < bound, f"{dt}: grid solve "
+              f"residual {res:.3e} >= {bound:.3e}")
+        line = (f"[{tag}] {dt}: grid factor {t_grid:.3f} s (best of 3; "
+                f"first {t_first:.3f} s) = {gflop / t_grid:.1f} GF/s, one "
+                f"device {t_one:.3f} s = {gflop / t_one:.1f} GF/s (grid / "
+                f"one {t_grid / t_one:.2f}); K1 {n_k1} launches in 4 grid "
+                f"factors; transfers a factor: {aud['total']['count']} "
+                f"records, {aud['total']['bytes']} bytes (all-gather, = the "
+                f"tiers' formula); pool and d {err:.3e} / {err_d:.3e} from "
+                f"the one-device factor (max|pool| {scale:.3e}, gate "
+                f"{gate:g}); solve residual {res:.3e} < {bound:.3e}")
+        if dtype == torch.float32:
+            xr = fg.solve_with_iterative_refinement(b).cpu().double()
+            rr = float(np.linalg.norm(Ssc @ xr.numpy() - b)
+                       / np.linalg.norm(b))
+            check(rr < 1e-5, f"float32: refined residual {rr:.3e} >= 1e-5")
+            line += f"; refined (6 steps) {rr:.3e} < 1e-5"
+        line += (f"; peak {peak_grid:.2f} GiB (grid), "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                 f"(with the one-device factor)")
+        if dtype == torch.float64:
+            line += (f"; grid: {profile_factor(fg)}; one device: "
+                     f"{profile_factor(f1)}")
+        del f1
+        fg.numeric = None
+        torch.cuda.empty_cache()
+        print(line + "; " + k1_against_plain(first.args))
+        del fg, first
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = port_entry.dryrun_multichip(4)
+    print(f"[{tag}] entry.dryrun_multichip(4) on the card (one card, "
+          f"repeated positions; lap3d=32): {time.perf_counter() - t0:.1f} s; "
+          f"factor {out['factor_s_grid']:.3f} s on the grid, "
+          f"{out['factor_s_one']:.3f} s on one position, "
+          f"{out['factor_transfers']['bytes']} bytes across positions; "
+          f"weak scaling (one card, repeated positions): " + "; ".join(
+              f"{r['op']} {r['positions']}: {r['ms']:.2f} ms, "
+              f"{r['bytes']} bytes" for r in out["scaling"]))
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -4170,7 +4390,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-23 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-24 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -4241,7 +4461,12 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     phase_lapack(args.seed)
     phase_spectral(args.seed)
 
-    print(f"[1-23] every phase, the kernels' build included, took "
+    t0 = time.perf_counter()
+    launches += phase_dist_ldl(args.seed, orders["lap48"])
+    print(f"[24 dist LDL] the phase took {time.perf_counter() - t0:.1f} s "
+          f"(its symbolic analysis included)")
+
+    print(f"[1-24] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",

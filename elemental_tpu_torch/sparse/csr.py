@@ -31,6 +31,9 @@ class SparseBuilder:
         self._cols: list = []
         self._vals: list = []
 
+    def reserve(self, n: int) -> None:
+        """Reference ``Reserve``: nothing to do, the queues are lists."""
+
     def queue_update(self, i, j, v) -> None:
         self._rows.append(i)
         self._cols.append(j)

@@ -12,7 +12,7 @@ import torch
 from ..core.policy import residual_bound, working_dtype
 from ..sparse.csr import SparseMatrix
 from .ea_plan import EAPlan, build_ea_plan
-from .numeric import LDLFactorization, factor
+from .numeric import DIST_FRONT_MIN, LDLFactorization, factor
 from .symbolic import SymbolicFactorization, analyze
 
 
@@ -29,12 +29,21 @@ class SparseLDLFactorization:
     a complex dtype, a real A is promoted to a complex one.  ``spd``: use
     the Cholesky front kernel (A must be positive definite, or Hermitian
     positive definite with ``hermitian=True``).
+
+    ``grid``: optional ``core.Grid`` (the JAX ``mesh``): the factor splits
+    its big levels' batches over the positions of ``tree_axis`` and
+    factors the few top fronts of order ≥ ``dist_front_min`` over every
+    position (``numeric.factor``); the pool stays on ``device``.
     """
 
-    def __init__(self, *, device, dtype, spd: bool = False):
-        self.device = torch.device(device)
+    def __init__(self, *, device, dtype, spd: bool = False, grid=None,
+                 tree_axis=None, dist_front_min: int = DIST_FRONT_MIN):
+        self.device = None if device is None else torch.device(device)
         self.dtype = working_dtype(dtype)
         self.spd = spd
+        self.grid = grid
+        self.tree_axis = tree_axis
+        self.dist_front_min = dist_front_min
         self.A: Optional[SparseMatrix] = None
         self.hermitian = False
         self.symb: Optional[SymbolicFactorization] = None
@@ -53,6 +62,10 @@ class SparseLDLFactorization:
             raise TypeError(f"a complex matrix needs a complex working "
                             f"dtype, not {self.dtype}: the imaginary part "
                             f"would be dropped")
+        if self.device is None:
+            if self.grid is None:
+                raise ValueError("no device: pass one, or a grid")
+            self.device = self.grid.device(0, 0)
         self.A = A
         self.hermitian = hermitian
         if perm is None:
@@ -80,7 +93,9 @@ class SparseLDLFactorization:
         self._reg = reg
         self.numeric = factor(self.symb, self.A.vals, ea_plan=self.ea_plan,
                               dtype=self.dtype, conjugate=self.hermitian,
-                              reg=reg, spd=self.spd)
+                              reg=reg, spd=self.spd, grid=self.grid,
+                              tree_axis=self.tree_axis,
+                              dist_front_min=self.dist_front_min)
         return self
 
     def change_nonzero_values(self, new_vals) -> "SparseLDLFactorization":
@@ -143,3 +158,43 @@ class SparseLDLFactorization:
             for k in range(ns):
                 total += 2.0 * (s - k) ** 2
         return total / 1e9
+
+
+class DistSparseLDLFactorization(SparseLDLFactorization):
+    """Distributed facade (reference ``DistSparseLDLFactorization.cpp:
+    53-268``): ``initialize`` takes a ``sparse.DistSparseMatrix``, and the
+    numeric factor runs on its grid, the level batches split over every
+    axis (subtree-to-subteam mapping, ``Process.hpp:150-275``) and the top
+    fronts factored over every position (``dist_front.py``).
+
+        f = DistSparseLDLFactorization(dtype=torch.float64, spd=True)
+        f.initialize(dA, cutoff=64)   # dA: a DistSparseMatrix on a grid
+        f.factor()
+
+    The symbolic phase reads the replicated host structure (``A.host``);
+    the pool lives on ``device``, by default the grid's first position's
+    device."""
+
+    def __init__(self, *, dtype, device=None, spd: bool = False, grid=None,
+                 tree_axis=None, dist_front_min: int = DIST_FRONT_MIN):
+        super().__init__(device=device, dtype=dtype, spd=spd, grid=grid,
+                         tree_axis=tree_axis, dist_front_min=dist_front_min)
+
+    def initialize(self, A, hermitian: bool = False,
+                   perm: Optional[np.ndarray] = None, relax: int = 8,
+                   cutoff: int = 64, size_bucket: float = 0.0
+                   ) -> "DistSparseLDLFactorization":
+        from ..sparse.distsparse import DistSparseMatrix
+        if isinstance(A, DistSparseMatrix):
+            if self.grid is None:
+                self.grid = A.grid
+                if self.tree_axis is None:
+                    self.tree_axis = ("mc", "mr")
+            if A.host is None:
+                raise ValueError("DistSparseMatrix built without host "
+                                 "structure: the symbolic phase needs the "
+                                 "replicated pattern")
+            A = A.host
+        return super().initialize(A, hermitian=hermitian, perm=perm,
+                                  relax=relax, cutoff=cutoff,
+                                  size_bucket=size_bucket)

@@ -39,6 +39,7 @@ import dataclasses
 import torch
 
 from ..kernels.extend_add import extend_add
+from ..utils import transfers
 from .ea_plan import EAPlan
 from .symbolic import SymbolicFactorization
 
@@ -320,9 +321,22 @@ class LDLFactorization:
         return (int((d > 0).sum()), int((d < 0).sum()), int((d == 0).sum()))
 
 
+# the batch split's threshold (the JAX package's, ``_shard_level``): a
+# level is split over the positions when it has at least one front a
+# position and nf·S³ reaches it
+SPLIT_MIN_WORK = 2e9
+
+# the default order from which a level of at most 8 fronts takes the
+# distributed front factor (``dist_front.py``) on a grid: the JAX package's
+# accelerator value
+DIST_FRONT_MIN = 1536
+
+
 def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
            conjugate: bool = False, reg=None, spd: bool = False,
-           pivot_floor=None, panel_blocksize: int = 32) -> LDLFactorization:
+           pivot_floor=None, panel_blocksize: int = 32, grid=None,
+           tree_axis=None,
+           dist_front_min: int = DIST_FRONT_MIN) -> LDLFactorization:
     """Numeric multifrontal LDL from the symbolic plan (on the device, see
     ``SymbolicFactorization.to``) and A's values in original entry order.
 
@@ -334,14 +348,76 @@ def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
     in original order (see :func:`_clamp_pivot`).  ``panel_blocksize``:
     levels eliminating more columns than this use the blocked LDL kernel.
     ``ea_plan``: the extend-add plan of ``symb`` (``ea_plan.build_ea_plan``),
-    applied through K1."""
+    applied through K1.
+
+    ``grid``: optional ``core.Grid``; the pool stays on the plan's device
+    (the grid's first position's, from the facade) and two tiers of levels
+    go to the positions (reference subtree→subteam mapping,
+    ``Process.hpp:150-275``, and L2D fronts, ``numeric.hpp:29-38``):
+
+    * a real level of at most 8 fronts of order ≥ ``dist_front_min`` is
+      factored front by front by ``dist_front.dist_partial_ldl`` over every
+      position (SPD fronts too, by the LDL elimination, as in JAX);
+    * a level of at least ``grid.size`` fronts and nf·S³ ≥
+      :data:`SPLIT_MIN_WORK` is split into contiguous chunks over the
+      positions of ``tree_axis`` (an axis name or a tuple of them; default
+      ``'mc'``, the JAX mesh's first axis), each factored by the level's
+      own kernel on its position's device (:func:`_shard_level`).
+
+    Each result's return to the replicated pool is recorded in an open
+    ``utils.transfers.count_transfers`` log as the ``all-gather`` the JAX
+    package needs."""
     with full_fp32_matmul():
         return _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd,
-                            pivot_floor, panel_blocksize, conjugate)
+                            pivot_floor, panel_blocksize, conjugate, grid,
+                            tree_axis, dist_front_min)
+
+
+def _record_replication(parts, holders, positions: int) -> None:
+    """Record the ``all-gather`` that replicates a tensor cut into
+    ``parts`` at each of ``positions`` positions; ``holders[c]``: the
+    positions that already hold part c."""
+    if not transfers.recording:
+        return
+    shape = (sum(t.shape[0] for t in parts),) + tuple(parts[0].shape[1:])
+    for q in range(positions):
+        transfers.record("all-gather", (shape, parts[0].dtype),
+                         [(t, q if q in held else held[0])
+                          for t, held in zip(parts, holders)], q)
+
+
+def _shard_level(fronts, ns, max_ns: int, pf, grid, tree_axis,
+                 kernel) -> None:
+    """Split a level's batch into contiguous chunks over the positions of
+    ``tree_axis`` (JAX ``_shard_level``: the batch axis sharded over that
+    axis, sibling subtrees to positions; chunks of ⌈nf/c⌉ fronts, the
+    uneven tiling of a ``NamedSharding``) and factor each with ``kernel``
+    on its first holder's device, in place in the pool."""
+    nchunks = grid.axis_size(tree_axis)
+    holders = [[] for _ in range(nchunks)]
+    for q, (i, j) in enumerate(grid.positions()):
+        holders[grid.chunk_index(tree_axis, i, j)].append(q)
+    size = -(-fronts.shape[0] // nchunks)
+    devs = [grid.device(i, j) for i, j in grid.positions()]
+    parts = []
+    for c in range(nchunks):
+        sub = fronts[c * size:(c + 1) * size]
+        parts.append(sub)
+        if not sub.shape[0]:
+            continue
+        dev = devs[holders[c][0]]
+        cut = slice(c * size, (c + 1) * size)
+        work = sub.to(dev)
+        kernel(work, ns[cut].to(dev), max_ns,
+               None if pf is None else pf[cut].to(dev))
+        if work.data_ptr() != sub.data_ptr():
+            sub.copy_(work)
+    _record_replication(parts, holders, grid.size)
 
 
 def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
-                 panel_blocksize, conjugate):
+                 panel_blocksize, conjugate, grid=None, tree_axis=None,
+                 dist_front_min=DIST_FRONT_MIN):
     dev = symb.perm.device
     with_children = {li for li, lev in enumerate(symb.levels)
                      if lev.child_dst.numel()}
@@ -375,6 +451,18 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
         if regp is not None and lev.diag_dst.numel():
             pool.index_add_(0, lev.diag_dst, regp[lev.diag_cols])
 
+    def kernel(fronts, ns, max_ns, pf):
+        """One level's (or chunk's) masked partial factor, in place."""
+        if spd:
+            _masked_partial_spd(fronts, ns, max_ns, conjugate)
+        elif max_ns > panel_blocksize:
+            _masked_partial_ldl_blocked(fronts, ns, max_ns, conjugate,
+                                        nb=panel_blocksize, pf=pf)
+        else:
+            _masked_partial_ldl(fronts, ns, max_ns, conjugate, pf=pf)
+
+    if tree_axis is None:
+        tree_axis = "mc"
     d = torch.zeros(symb.n, dtype=dtype, device=dev)
     for li, lev in enumerate(symb.levels):
         if li in ea_plan.levels:
@@ -384,14 +472,24 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
         fronts = pool[lev.offset:lev.offset + nf * S * S].view(nf, S, S)
         max_ns = int(lev.ns.max())
         ns = torch.as_tensor(lev.ns).to(dev)
-        if spd:
-            _masked_partial_spd(fronts, ns, max_ns, conjugate)
+        pf = None if pfp is None or spd else pfp[lev.front_rows]
+        if grid is not None and S >= dist_front_min and nf <= 8 \
+                and not dtype.is_complex:
+            from .dist_front import PANEL, dist_partial_ldl, padded_size
+            pfd = None if pfp is None else pfp[lev.front_rows]
+            rl = padded_size(S, PANEL, grid.size) // grid.size
+            for f in range(nf):
+                dist_partial_ldl(fronts[f], int(lev.ns[f]), grid,
+                                 conjugate=conjugate,
+                                 pf=None if pfd is None else pfd[f])
+                _record_replication(
+                    [fronts[f][q * rl:(q + 1) * rl]
+                     for q in range(grid.size)],
+                    [[q] for q in range(grid.size)], grid.size)
+        elif grid is not None and nf >= grid.size \
+                and nf * S ** 3 >= SPLIT_MIN_WORK:
+            _shard_level(fronts, ns, max_ns, pf, grid, tree_axis, kernel)
         else:
-            pf = None if pfp is None else pfp[lev.front_rows]
-            if max_ns > panel_blocksize:
-                _masked_partial_ldl_blocked(fronts, ns, max_ns, conjugate,
-                                            nb=panel_blocksize, pf=pf)
-            else:
-                _masked_partial_ldl(fronts, ns, max_ns, conjugate, pf=pf)
+            kernel(fronts, ns, max_ns, pf)
         d[lev.diag_cols] = pool[lev.diag_dst]
     return LDLFactorization(symb, pool, d, conjugate)

@@ -58,6 +58,33 @@ def etree(A: SparseMatrix) -> np.ndarray:
     return parent
 
 
+def postorder(parent: np.ndarray) -> np.ndarray:
+    """Post-ordering of a forest given parent pointers: each subtree's
+    nodes, children in ascending order, then its root; the roots in
+    ascending order."""
+    n = parent.shape[0]
+    children: List[List[int]] = [[] for _ in range(n)]
+    roots = []
+    for v in range(n):
+        p = parent[v]
+        if p == -1:
+            roots.append(v)
+        else:
+            children[p].append(v)
+    out = np.empty(n, np.int64)
+    idx = 0
+    stack = [(r, False) for r in reversed(roots)]
+    while stack:
+        v, done = stack.pop()
+        if done:
+            out[idx] = v
+            idx += 1
+        else:
+            stack.append((v, True))
+            stack.extend((c, False) for c in reversed(children[v]))
+    return out
+
+
 def column_structures(A: SparseMatrix, parent: np.ndarray
                       ) -> List[np.ndarray]:
     """Full symbolic factor structure: struct(j) = rows of L below the

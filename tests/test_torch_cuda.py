@@ -1702,3 +1702,79 @@ def test_product_lanczos_csr_device_on_card_matches_cpu(cuda):
     err = np.abs(_host(Ts[1]) - _host(Ts[0])).max() / np.abs(
         _host(Ts[0])).max()
     assert err <= 1e-10, err
+
+
+def test_dist_front_2x2_on_card_matches_cpu(cuda):
+    """``dist_partial_ldl`` on a 2×2 grid over the card (nb = 128, S = 600
+    padded to 640) equals the CPU's on a 2×2 grid within 1e-12 of
+    max|F|, float64, with pivot floors."""
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.sparse_direct.dist_front import dist_partial_ldl
+    S, ns = 600, 500
+    a = np.random.default_rng(45).standard_normal((S, S))
+    F = torch.from_numpy(np.tril(a @ a.T + S * np.eye(S)))
+    pf = torch.from_numpy(np.where(np.arange(S) % 2, -1.0, 1.0) * S)
+    out = [_host(dist_partial_ldl(F.clone().to(dev), ns, Grid([dev] * 4),
+                                  pf=pf.to(dev)))
+           for dev in (torch.device("cpu"), cuda)]
+    assert np.abs(out[1] - out[0]).max() <= 1e-12 * np.abs(out[0]).max()
+
+
+def test_dist_front_f32_on_card_has_no_tf32(cuda):
+    """A float32 front of order 1024 fully eliminated on a 2×2 grid over
+    the card with the caller's TF32 flag on: ‖L·D·Lᵀ − F‖/‖F‖ in float64
+    on the host near 1e-7 (TF32 in the trailing updates would read about
+    1e-3), the flag restored."""
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.sparse_direct.dist_front import dist_partial_ldl
+    S = 1024
+    a = np.random.default_rng(46).standard_normal((S, S))
+    f64 = a @ a.T + S * np.eye(S)
+    F = torch.from_numpy(np.tril(f64).astype(np.float32)).to(cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        out = _host(dist_partial_ldl(F, S, Grid([cuda] * 4)))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    L = np.tril(out.astype(np.float64), -1) + np.eye(S)
+    d = np.diagonal(out).astype(np.float64)
+    res = np.linalg.norm(L * d @ L.T - f64) / np.linalg.norm(f64)
+    assert res <= 1e-5, res
+
+
+def test_dist_ldl_12_on_card_launches_k1(cuda, monkeypatch):
+    """The 12³ Laplacian's ``DistSparseLDLFactorization`` on a 2×2 grid
+    over the card, both tiers forced (fronts of order ≥ 96 over the grid,
+    every level of ≥ 4 fronts split): K1 launched once a level with
+    children, the fronts' lower triangles and the pivots within 1e-12 of
+    the one-device SPD factor's, the residual under the bound."""
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.sparse import DistSparseMatrix
+    from elemental_tpu_torch.sparse_direct import (DistSparseLDLFactorization,
+                                                   numeric)
+    monkeypatch.setattr(numeric, "SPLIT_MIN_WORK", 1.0)
+    A = sparse_laplacian_3d(12, 12, 12, scaled=False)
+    perm = nested_dissection(A, cutoff=32)
+    f = DistSparseLDLFactorization(dtype=torch.float64, spd=True,
+                                   dist_front_min=96)
+    f.initialize(DistSparseMatrix.from_sparse(A, Grid([cuda] * 4)),
+                 perm=perm)
+    assert f.device == cuda
+    before = extend_add.launches
+    f.factor()
+    assert extend_add.launches - before == len(f.ea_plan.levels) > 0
+    f1 = SparseLDLFactorization(device=cuda, dtype=torch.float64, spd=True)
+    f1.initialize(A, perm=perm).factor()
+    for lev in f.symb.levels:
+        a = torch.tril(f.numeric._level_fronts(lev))
+        b = torch.tril(f1.numeric._level_fronts(lev))
+        assert float((a - b).abs().max()) <= 1e-12 * float(
+            f1.numeric.pool.abs().max())
+    assert float((f.numeric.d - f1.numeric.d).abs().max()) <= 1e-12 * float(
+        f1.numeric.d.abs().max())
+    b = np.random.default_rng(47).standard_normal(A.height)
+    x = f.solve(b).cpu().numpy()
+    r = np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b)
+    assert r < f.residual_bound()

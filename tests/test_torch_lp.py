@@ -218,6 +218,7 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.sparse.io\n"
             "import elemental_tpu_torch.lapack.sparse_min\n"
             "import elemental_tpu_torch.sparse_direct.facade\n"
+            "import elemental_tpu_torch.sparse_direct.dist_front\n"
             "import elemental_tpu_torch.core.grid\n"
             "import elemental_tpu_torch.core.distmatrix\n"
             "import elemental_tpu_torch.core.redistribute\n"
