@@ -113,22 +113,32 @@ Phases, each printing at least one line and each fatal when it fails:
     complex64 factor of each size under ``torch.profiler``.
 19. the dense core and the BLAS tier (``core``, ``ops``; plain torch, no
     kernel of the port): ``Grid()`` is 1×1 on the card and every block of
-    every result lies there; an 8192² float64 matrix on a 2×2 grid over the
-    card through every pair of ``DIST_PAIRS`` and back, bit-exact; a
+    every result lies there; every [MC,MR] block made by ``distribute``, a
+    redistribution or an op owns storage of its own size; an 8192² float64
+    matrix on a 2×2 grid over the card through every pair of
+    ``DIST_PAIRS`` and back, bit-exact; a
     ``BlockCyclicMatrix`` (nb = 128) round trip and a gemm through the
     conversion; ``ops.gemm`` at 8192³ in float32 and float64, ``alg='xla'``
     on the 1×1 grid and ``stationary_c``, ``stationary_a``, ``stationary_b``
-    and ``pipelined`` on the 2×2 grid, and 8191×8190×8193 on the 2×2 grid
-    (padded), each within 1e-5 (float32: TF32 would read about 1e-3) and
-    1e-13 (float64) of the float64 product, with ms (CUDA events, 10
-    launches), TFLOP/s and the ratio to one ``torch.matmul`` of the same
-    operands; ``trsm`` ('L','L','N','N') and ('R','U','C','N') at n = 8192
-    with 8192 right-hand sides in float32, float64 and complex64, the
+    and ``pipelined`` on the 2×2 grid's blocks, and 8191×8190×8193 on the
+    2×2 grid (m and n replicated), each within 1e-5 (float32: TF32 would
+    read about 1e-3) and 1e-13 (float64) of the float64 product, with ms
+    (CUDA events, 10 launches), TFLOP/s and the ratio to one
+    ``torch.matmul`` of the same operands beside the assembled route's
+    (run N3), the transfer log
+    by kind and the device bytes the call allocates above its operands and
+    result (a whole operand gathered on the 2×2 grid is fatal); ``trsm``
+    ('L','L','N','N') and ('R','U','C','N') at n = 8192 with 8192
+    right-hand sides in float32, float64 and complex64, the
     residual ‖op(T)X − αB‖/(‖T‖‖X‖) under ``residual_bound``, beside
     ``torch.linalg.solve_triangular``; ``herk`` and ``trrk`` at 8192×4096,
     ``symm``, ``hemm`` (complex64) and ``trmm`` at 8192² against the same
-    formula in float64; ``gemv``, ``ger``, ``axpy``, ``nrm2`` and ``dot`` at
-    8192² on the 2×2 grid; ``gemm_3d`` on a 2×2×2 mesh over the card at
+    formula in float64; ``herk`` on the 2×2 grid's blocks and ``trsm``
+    assembled there (as the JAX HLO gathers it), with their transfers;
+    ``gemv``, ``ger``, ``axpy``, ``nrm2`` and ``dot`` at 8192² on the 2×2
+    grid's blocks, each with its transfers (a whole operand or result
+    gathered is fatal), extra bytes and ratio to the bare op beside the
+    assembled route's; ``gemm_3d`` on a 2×2×2 mesh over the card at
     4096³; 10⁵ queued updates on an 8192² matrix against ``index_put_(...,
     accumulate=True)``, and 1000 queued pulls.
 20. the sparse products and the distributed sparse containers (plain
@@ -236,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2382,6 +2393,64 @@ def _on_card(D) -> bool:
     return all(D.local(i, j).is_cuda for i, j in D.grid.positions())
 
 
+def _owned(D) -> bool:
+    """Every block's storage is its own size."""
+    return all(D.local(i, j).untyped_storage().nbytes()
+               == D.local(i, j).numel() * D.local(i, j).element_size()
+               for i, j in D.grid.positions())
+
+
+# run N3 (one NVIDIA H100 80GB HBM3 at 700 W), taken when the BLAS tier
+# assembled each operand on the grid's first position: each level 1/2
+# case's time over the bare torch op, the SUMMA variants' over
+# torch.matmul
+N3_RATIO = {"gemv N": "5.55", "ger": "1.68", "axpy": "2.88", "nrm2": "5.36",
+            "dot": "5.68"}
+N3_SUMMA = {"float32": "1.039-1.068", "float64": "1.220-1.253"}
+
+
+def _audit(log) -> str:
+    """The transfer log's records by kind: count and MiB."""
+    kinds = {}
+    for r in log:
+        c, b = kinds.get(r.kind, (0, 0))
+        kinds[r.kind] = (c + 1, b + r.bytes)
+    return ", ".join(f"{k} {c}× {b / 2 ** 20:.1f} MiB"
+                     for k, (c, b) in sorted(kinds.items())) or "none"
+
+
+def _whole_gathers(log, shapes, numel: int) -> list:
+    """The all-gather records that hold a whole operand or result: a shape
+    in ``shapes``, or at least ``numel`` entries."""
+    return [r for r in log.of("all-gather")
+            if r.shape in shapes or math.prod(r.shape) >= numel]
+
+
+def _stored(x) -> int:
+    """Bytes of device storage a result holds (each block once)."""
+    ts = ([x.local(i, j) for i, j in x.grid.positions()]
+          if hasattr(x, "grid") else [x] if hasattr(x, "untyped_storage")
+          else [t for t in x if hasattr(t, "untyped_storage")])
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in ts}
+    return sum(seen.values())
+
+
+def _counted(fn):
+    """(fn()'s result, its transfer log, the device bytes it allocated
+    above what was allocated before it, less those its result holds)."""
+    import torch
+    from elemental_tpu_torch.utils import count_transfers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with count_transfers() as log:
+        out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - _stored(out)
+    return out, log, extra
+
+
 def phase_dense(seed: int) -> None:
     """19: the dense core and the BLAS tier on the card (see the module
     docstring).  Every gate is fatal."""
@@ -2396,6 +2465,7 @@ def phase_dense(seed: int) -> None:
     tag = "19 dense"
     n = DENSE_N
     t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2420,11 +2490,21 @@ def phase_dense(seed: int) -> None:
     A = distribute(a, MC, MR, g4)
     check(_on_card(A) and tuple(A.local(1, 1).shape) == (n // 2, n // 2),
           "[MC,MR] blocks")
+    S = ops.scale(2.0, A)
+    check(_owned(A) and _owned(S),
+          "an [MC,MR] block does not own its storage (distribute, scale)")
+    print(f"[{tag}] storage: each [MC,MR] block of {n}² float64 made by "
+          f"distribute and by scale owns "
+          f"{A.local(1, 1).untyped_storage().nbytes() / 2 ** 20:.0f} MiB, "
+          f"its own size")
+    del S
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for pair in DIST_PAIRS:
         B = A.redistribute(*pair)
         check(_on_card(B), f"[{pair[0].value},{pair[1].value}] off the card")
+        check(_owned(B), f"[{pair[0].value},{pair[1].value}]: a block that "
+              f"does not own its storage")
         check(torch.equal(as_array(B.redistribute(MC, MR)), a),
               f"[MC,MR] → [{pair[0].value},{pair[1].value}] → [MC,MR] "
               f"changed the matrix")
@@ -2463,8 +2543,13 @@ def phase_dense(seed: int) -> None:
             "stationary_c", "stationary_a", "stationary_b", "pipelined")]
         for alg, g in cases:
             A, B = distribute(a, MC, MR, g), distribute(b, MC, MR, g)
-            C = ops.gemm("N", "N", 1.0, A, B, alg=alg)
-            check(_on_card(C), f"gemm {alg}: a block off the card")
+            C, log, extra = _counted(
+                lambda: ops.gemm("N", "N", 1.0, A, B, alg=alg))
+            check(_on_card(C) and _owned(C),
+                  f"gemm {alg}: a block off the card or not its own")
+            whole = _whole_gathers(log, {(n, n)}, n * n)
+            check(not whole, f"gemm {alg}: a whole operand gathered: "
+                  f"{whole[:2]}")
             err = _fro(as_array(C), ref)
             check(err <= gate, f"gemm {alg} {dtype}: rel. error {err:.3g} "
                   f"over {gate:g}")
@@ -2472,23 +2557,26 @@ def phase_dense(seed: int) -> None:
             ms = cuda_ms(lambda: ops.gemm("N", "N", 1.0, A, B, alg=alg), 10)
             print(f"[{tag}] gemm {str(dtype)[6:]} {n}³ {alg} on "
                   f"{g.height}×{g.width}: {ms:.3f} ms, {tf / ms:.2f} "
-                  f"TFLOP/s, {ms / lib:.3f}× torch.matmul ({lib:.3f} ms); "
-                  f"rel. error {err:.3g}")
+                  f"TFLOP/s, {ms / lib:.3f}× torch.matmul ({lib:.3f} ms; "
+                  f"assembled, N3: {N3_SUMMA[str(dtype)[6:]]}× on 2×2); "
+                  f"rel. error {err:.3g}; transfers: {_audit(log)}; extra "
+                  f"peak {extra / 2 ** 20:.0f} MiB")
         m_, k_, n_ = n - 1, n - 2, n + 1
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)   # not divisible
             A = distribute(a[:m_, :k_], MC, MR, g4)
             B = distribute(rand((k_, n_), dtype), MC, MR, g4)
         alg = ops.summa.choose_algorithm(m_, n_, k_, g4)
-        C = ops.gemm("N", "N", 1.0, A, B)
+        C, log, extra = _counted(lambda: ops.gemm("N", "N", 1.0, A, B))
         err = _fro(as_array(C), as_array(A).double() @ as_array(B).double())
         check(err <= gate, f"gemm {m_}×{k_}×{n_} {dtype}: {err:.3g}")
         del C
         ms = cuda_ms(lambda: ops.gemm("N", "N", 1.0, A, B), 10)
-        print(f"[{tag}] gemm {str(dtype)[6:]} {m_}×{k_}×{n_} (padded) on "
-              f"2×2, auto = {alg}: {ms:.3f} ms, "
+        print(f"[{tag}] gemm {str(dtype)[6:]} {m_}×{k_}×{n_} (not divided: "
+              f"m and n replicated) on 2×2, auto = {alg}: {ms:.3f} ms, "
               f"{2.0 * m_ * n_ * k_ / 1e9 / ms:.2f} TFLOP/s; rel. error "
-              f"{err:.3g}")
+              f"{err:.3g}; transfers: {_audit(log)}; extra peak "
+              f"{extra / 2 ** 20:.0f} MiB")
         del A, B, a, b, ref
         torch.cuda.empty_cache()
 
@@ -2565,6 +2653,48 @@ def phase_dense(seed: int) -> None:
     del a, c, bk, s, z, zb, ad, cd, bkd, sd, hermitian, symmetric
     torch.cuda.empty_cache()
 
+    # herk on the 2×2 grid's blocks (no whole operand or result gathered),
+    # and trsm, assembled at the first position as the JAX HLO gathers it
+    k = n // 2
+    a = rand((n, k), torch.float32)
+    Ad = distribute(a, MC, MR, g4)
+    H, log, extra = _counted(lambda: ops.herk("L", "N", 1.0, Ad))
+    whole = _whole_gathers(log, {(n, k), (n, n)}, n * k)
+    check(_on_card(H) and _owned(H) and not whole,
+          f"herk on the 2×2 grid: a block off the card or not its own, or "
+          f"a whole operand gathered: {whole[:2]}")
+    ad = a.double()
+    err = _fro(as_array(H), torch.tril(ad @ ad.T))
+    check(err <= 1e-5, f"herk on the 2×2 grid: rel. error {err:.3g}")
+    del H, ad
+    ms = cuda_ms(lambda: ops.herk("L", "N", 1.0, Ad), 3)
+    lib = cuda_ms(lambda: torch.tril(a @ a.T), 3)
+    print(f"[{tag}] herk L N float32 {n}×{k} on the 2×2 grid: {ms:.3f} ms, "
+          f"{2.0 * n * n * k / 1e9 / ms:.2f} TFLOP/s, {ms / lib:.3f}× "
+          f"torch.tril(a @ a.T) ({lib:.3f} ms); rel. error {err:.3g}; "
+          f"transfers: {_audit(log)}; extra peak {extra / 2 ** 20:.0f} MiB")
+    del a, Ad
+    T = distribute(torch.tril(rand((n, n), torch.float64))
+                   + n * torch.eye(n, device="cuda", dtype=torch.float64),
+                   MC, MR, g4)
+    R = distribute(rand((n, n), torch.float64), MC, MR, g4)
+    X, log, extra = _counted(lambda: ops.trsm("L", "L", "N", "N", 1.5, T, R))
+    check(_on_card(X) and _owned(X), "trsm on the 2×2 grid: the result's "
+          "blocks")
+    t, x, r = as_array(T), as_array(X), as_array(R)
+    res = float(torch.linalg.norm(torch.tril(t) @ x - 1.5 * r)
+                / (torch.linalg.norm(torch.tril(t)) * torch.linalg.norm(x)))
+    bound = residual_bound(torch.float64, n)
+    check(res < bound, f"trsm on the 2×2 grid: residual {res:.3g}")
+    del X, t, x, r
+    ms = cuda_ms(lambda: ops.trsm("L", "L", "N", "N", 1.5, T, R), 3)
+    print(f"[{tag}] trsm LLNN float64 {n}² on the 2×2 grid (assembled at "
+          f"the first position, as the JAX HLO gathers A whole): "
+          f"{ms:.3f} ms; residual {res:.3g}; transfers: {_audit(log)}; "
+          f"extra peak {extra / 2 ** 20:.0f} MiB")
+    del T, R
+    torch.cuda.empty_cache()
+
     # level 1 and 2 on the 2×2 grid
     x, y = rand((n, n), torch.float32), rand((n, n), torch.float32)
     u, v = rand((n,), torch.float32), rand((n,), torch.float32)
@@ -2585,7 +2715,12 @@ def phase_dense(seed: int) -> None:
          lambda: torch.vdot(x.reshape(-1), y.reshape(-1)), 8 * n * n),
     )
     for what, run, formula, bare, nbytes in cases:
-        got = run()
+        got, log, extra = _counted(run)
+        whole = _whole_gathers(log, {(n, n), (n,)}, n * n)
+        check(not whole, f"{what}: a whole operand or result gathered on "
+              f"the block route: {whole[:2]}")
+        if hasattr(got, "grid"):
+            check(_owned(got), f"{what}: a block not its own")
         if what == "nrm2":
             err = abs(float(got) - nx) / nx
         elif what == "dot":
@@ -2597,11 +2732,14 @@ def phase_dense(seed: int) -> None:
                 got = as_array(got)
             err = _fro(got, formula())
         check(err <= 1e-5, f"{what}: rel. error {err:.3g}")
+        del got
         ms, bare_ms = cuda_ms(run, 10), cuda_ms(bare, 10)
         print(f"[{tag}] {what} float32 on the 2×2 grid ({n}²): {ms:.3f} ms, "
               f"{nbytes / 1e6 / ms:.1f} GB/s of the operands, {ms / bare_ms:.2f}"
-              f"× the same torch op on the whole tensors ({bare_ms:.3f} ms); "
-              f"rel. error {err:.3g}")
+              f"× the same torch op on the whole tensors ({bare_ms:.3f} ms; "
+              f"assembled, N3: {N3_RATIO[what]}×); rel. error {err:.3g}; "
+              f"transfers: {_audit(log)}; extra peak "
+              f"{extra / 2 ** 20:.0f} MiB")
     del x, y, X, Y, xd, yd
     torch.cuda.empty_cache()
 
@@ -2650,7 +2788,8 @@ def phase_dense(seed: int) -> None:
           f"equal to index_put_(accumulate=True); 1000 pulls equal")
     del base, M, M2, want
     torch.cuda.empty_cache()
-    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
 
 SPARSE_N1 = 1024        # phase 20's Laplacian: SPARSE_N1² rows
@@ -3494,6 +3633,7 @@ def phase_lapack(seed: int) -> None:
     tag = "22 lapack"
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     print(f"[{tag}] linalg library: "
           f"{torch.backends.cuda.preferred_linalg_library()}")
     for part in (_lapack_factors, _lapack_pivoted, _lapack_tsqr,
@@ -3504,7 +3644,8 @@ def phase_lapack(seed: int) -> None:
     t0 = time.perf_counter()
     _lapack_generators(tag)
     print(f"[{tag}] generators: {time.perf_counter() - t0:.1f} s")
-    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
 
 # phase 23: the spectral tier

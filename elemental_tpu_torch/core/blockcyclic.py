@@ -10,7 +10,10 @@ As in the JAX package, BLOCK wrap is an index map over the same layouts: a
 into owner-major block order, so the plain [MC,MR] blocks of the permuted
 matrix are exactly the ScaLAPACK ``(mb, nb)`` block-cyclic ownership;
 ``to_element``/``from_element`` convert to the element-cyclic
-:class:`~.distmatrix.DistMatrix` world (one permutation on the device).
+:class:`~.distmatrix.DistMatrix` world: one permutation of the whole
+matrix, assembled at the grid's first position and cut again (both
+recorded in an open transfer log; the permutation moves rows and columns
+between every pair of positions).
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ def block_cyclic_perm(n: int, nb: int, p: int) -> np.ndarray:
     owner = blocks % p
     # sort by (owner, block, offset) — stable keeps in-block order
     return np.lexsort((idx, blocks, owner))
+
+
+def _cut_whole(t: torch.Tensor, grid: Grid) -> DistMatrix:
+    """The whole tensor ``t``, held at the grid's first position after an
+    assembly, cut [MC,MR] (recorded, as :meth:`DistMatrix.like` cuts)."""
+    return DistMatrix._from_whole(t, MC, MR, grid, 0, warn=True,
+                                  record=True)
 
 
 def _padded(m: int, n: int, mb: int, nb: int, grid: Grid) -> Tuple[int, int]:
@@ -97,7 +107,7 @@ class BlockCyclicMatrix:
         inv_r = torch.from_numpy(np.argsort(self.rperm)).to(dev)
         inv_c = torch.from_numpy(np.argsort(self.cperm)).to(dev)
         full = stored.index_select(0, inv_r).index_select(1, inv_c)
-        return distribute(full[:self.height, :self.width], MC, MR, self.grid)
+        return _cut_whole(full[:self.height, :self.width], self.grid)
 
     @classmethod
     def from_element(cls, A: DistMatrix, mb: int = 32, nb: int = 32
@@ -113,5 +123,5 @@ class BlockCyclicMatrix:
         cperm = block_cyclic_perm(npad, nb, grid.width)
         stored = ap.index_select(0, torch.from_numpy(rperm).to(a.device)) \
             .index_select(1, torch.from_numpy(cperm).to(a.device))
-        return cls(distribute(stored, MC, MR, grid), grid, m, n, mb, nb,
-                   rperm, cperm)
+        return cls(_cut_whole(stored, grid), grid, m, n, mb, nb, rperm,
+                   cperm)

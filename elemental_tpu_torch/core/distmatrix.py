@@ -10,17 +10,24 @@ contiguous chunks, mesh-major for a tuple of axes.  A dimension that the
 grid does not divide is replicated, with the JAX package's
 ``RuntimeWarning``.
 
-Redistribution copies blocks between positions (``.to(device)`` where the
-devices differ); a block that lies inside one source block on the same
-device is a view of it.  Replicated blocks of positions that share a device
-share storage.  An open :func:`~..utils.transfers.count_transfers` log
-records each target position's copies from other positions (see
-:meth:`DistMatrix._relayout`).
+Each block owns storage of its own size: :func:`distribute` copies each
+position's slice to its device (the counterpart of ``jax.device_put``),
+and a redistribution copies the pieces a target block needs from the
+blocks that hold them.  A replicated block is one copy per distinct
+device, shared by the positions on that device.
 
-Operations that the JAX package leaves to GSPMD (level 1 and 2, most of
-level 3) assemble the global tensor on the grid's first device
-(:func:`as_array`), compute there and cut the result again (:func:`like`).
-On a 1×1 grid the one block is the whole matrix and nothing is copied.
+The BLAS tier computes on the blocks (:func:`map_blocks`,
+:func:`reduce_parts`, :meth:`DistMatrix.fetch`), where the JAX package's
+GSPMD computes on the shards.  Assembling the whole matrix on the grid's
+first position (:func:`as_array`) and cutting a whole result again
+(:func:`like`) remain for the calls whose JAX HLO gathers a whole operand
+and for the tiers not yet moved onto blocks.  An open
+:func:`~..utils.transfers.count_transfers` log records every copy between
+positions: a redistribution's (see :meth:`DistMatrix._relayout`), an
+assembly as an ``all-gather`` at the first position, a cut of a whole
+result as a ``collective-permute`` at each other position.  Reading a
+matrix to the host (:func:`as_numpy`) is not recorded.  On a 1×1 grid the
+one block is the whole matrix and nothing is copied.
 
 A *local* matrix (reference ``Matrix<T,D>``) is a ``torch.Tensor``; every
 operation accepts either.
@@ -28,6 +35,7 @@ operation accepts either.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -79,10 +87,21 @@ def _slice(t: torch.Tensor, ranges: Tuple[Range, ...]) -> torch.Tensor:
     return t[tuple(slice(lo, hi) for lo, hi in ranges)]
 
 
-def _cut(t: torch.Tensor, spec: Spec, grid: Grid) -> List[List[torch.Tensor]]:
-    """Blocks of the whole tensor ``t`` laid out by ``spec``: views of one
-    copy of ``t`` per distinct device."""
-    on: Dict[torch.device, torch.Tensor] = {}
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it spans its whole storage, else a contiguous copy: a block
+    never keeps a larger tensor alive."""
+    if t.untyped_storage().nbytes() == t.numel() * t.element_size():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _cut(t: torch.Tensor, spec: Spec, grid: Grid,
+         record: bool = False) -> List[List[torch.Tensor]]:
+    """Blocks of the whole tensor ``t`` laid out by ``spec``: each
+    position's slice copied to its device, once per distinct (device,
+    ranges).  With ``record``, ``t`` is a result held at the first position
+    and each other position's block is recorded as a
+    ``collective-permute``."""
     memo: Dict[tuple, torch.Tensor] = {}
     blocks = [[None] * grid.width for _ in range(grid.height)]
     for i, j in grid.positions():
@@ -90,10 +109,11 @@ def _cut(t: torch.Tensor, spec: Spec, grid: Grid) -> List[List[torch.Tensor]]:
         ranges = _block_ranges(t.shape, spec, grid, i, j)
         key = (dev, ranges)
         if key not in memo:
-            if dev not in on:
-                on[dev] = t.to(dev)
-            memo[key] = _slice(on[dev], ranges)
+            memo[key] = _own(_slice(t, ranges).to(dev))
         blocks[i][j] = memo[key]
+        if record and transfers.recording:
+            transfers.record("collective-permute", memo[key],
+                             [(memo[key], (0, 0))], (i, j))
     return blocks
 
 
@@ -138,10 +158,12 @@ class DistMatrix:
 
     @classmethod
     def _from_whole(cls, t: torch.Tensor, coldist: Dist, rowdist: Dist,
-                    grid: Grid, root: int, warn: bool) -> "DistMatrix":
+                    grid: Grid, root: int, warn: bool,
+                    record: bool = False) -> "DistMatrix":
         spec = _feasible_spec(t.shape, partition_spec(coldist, rowdist),
                               grid, warn)
-        return cls(_cut(t, spec, grid), t.shape, coldist, rowdist, grid, root)
+        return cls(_cut(t, spec, grid, record), t.shape, coldist, rowdist,
+                   grid, root)
 
     # -- basic queries -----------------------------------------------------
     @property
@@ -191,9 +213,10 @@ class DistMatrix:
                 owners=None, dst=None, sources=None) -> torch.Tensor:
         """The global sub-block ``ranges`` on ``device``, copied from the
         blocks that hold it (from position ``dst`` itself where it holds
-        one, else from a position on ``device`` where one does); a view
-        where one block on ``device`` holds it all.  Each piece and its
-        source position are appended to the list ``sources`` if given."""
+        one, else from a position on ``device`` where one does); the block
+        itself where it is one whole block on ``device``, else storage of
+        its own.  Each piece and its source position are appended to the
+        list ``sources`` if given."""
         if any(lo == hi for lo, hi in ranges):
             return torch.empty(tuple(hi - lo for lo, hi in ranges),
                                dtype=self.dtype, device=device)
@@ -216,11 +239,36 @@ class DistMatrix:
             return src.to(device)
 
         if len(ranges) != 2:
-            return piece(tuple(0 for _ in ranges))
+            return _own(piece(tuple(0 for _ in ranges)))
         rows = [torch.cat([piece((r, c)) for c in per_dim[1]], dim=1)
                 if len(per_dim[1]) > 1 else piece((r, per_dim[1][0]))
                 for r in per_dim[0]]
-        return torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
+        return _own(torch.cat(rows, dim=0) if len(rows) > 1 else rows[0])
+
+    def fetch(self, ranges: Tuple[Range, ...], pos, device=None,
+              owners=None, kind: Optional[str] = None) -> torch.Tensor:
+        """The global sub-block ``ranges`` at grid position ``pos`` (on
+        ``device``, that position's by default), recorded in an open
+        transfer log as the pieces that come from other positions: an
+        ``all-gather`` where it is larger than one block, a
+        ``collective-permute`` where it is one other position's piece, an
+        ``all-to-all`` otherwise (or as ``kind``)."""
+        device = self.grid.device(*pos) if device is None else device
+        sources = [] if transfers.recording else None
+        out = self._gather(ranges, device, owners, pos, sources)
+        if sources:
+            block = int(np.prod([hi - lo for lo, hi in self.ranges(0, 0)]))
+            kind = kind or ("all-gather" if out.numel() > block else
+                            "collective-permute" if len(sources) == 1 else
+                            "all-to-all")
+            transfers.record(kind, out, sources, pos)
+        return out
+
+    def distinct(self) -> List[Tuple[Tuple[int, int], Tuple[Range, ...]]]:
+        """One (position, ranges) a distinct block: the first position
+        that holds it (a replicated block counts once)."""
+        return [(held[0], self.ranges(*held[0]))
+                for held in self._owners().values()]
 
     def _relayout(self, grid: Grid, coldist: Dist, rowdist: Dist,
                   warn: bool) -> "DistMatrix":
@@ -239,30 +287,23 @@ class DistMatrix:
         blocks = [[None] * grid.width for _ in range(grid.height)]
         here = (lambda p: p) if grid is self.grid else \
             (lambda p: (id(grid), p))
-        src_numel = int(np.prod([hi - lo for lo, hi in self.ranges(0, 0)]))
         for i, j in grid.positions():
             dev = grid.device(i, j)
             ranges = _block_ranges(self.shape, spec, grid, i, j)
             key = (dev, ranges)
-            sources = [] if transfers.recording else None
-            if key not in memo or sources is not None:
-                memo[key] = self._gather(ranges, dev, owners, here((i, j)),
-                                         sources)
+            if key not in memo or transfers.recording:
+                memo[key] = self.fetch(ranges, here((i, j)), dev, owners)
             blocks[i][j] = memo[key]
-            if sources:
-                out = blocks[i][j]
-                kind = ("all-gather" if out.numel() > src_numel else
-                        "collective-permute" if len(sources) == 1 else
-                        "all-to-all")
-                transfers.record(kind, out, sources, here((i, j)))
         return DistMatrix(blocks, self.shape, coldist, rowdist, grid,
                           self.root)
 
     def assemble(self, device: Optional[torch.device] = None) -> torch.Tensor:
-        """The whole matrix on ``device`` (the grid's first by default)."""
+        """The whole matrix at the grid's first position (on ``device``,
+        that position's by default), recorded as an ``all-gather`` of the
+        pieces other positions hold."""
         device = self.grid.device(0, 0) if device is None else device
-        return self._gather(tuple((0, n) for n in self.shape),
-                            torch.device(device))
+        return self.fetch(tuple((0, n) for n in self.shape), (0, 0),
+                          torch.device(device), kind="all-gather")
 
     # -- redistribution ----------------------------------------------------
     def redistribute(self, coldist: Dist, rowdist: Dist) -> "DistMatrix":
@@ -305,10 +346,13 @@ class DistMatrix:
 
     def like(self, data: torch.Tensor) -> "DistMatrix":
         """New DistMatrix with the same distribution holding ``data`` (the
-        whole matrix), cut by this matrix's layout."""
+        whole matrix, held at the first position), cut by this matrix's
+        layout; each other position's block is recorded as a
+        ``collective-permute``."""
         data = torch.as_tensor(data)
         return DistMatrix._from_whole(data, self.coldist, self.rowdist,
-                                      self.grid, self.root, warn=False)
+                                      self.grid, self.root, warn=False,
+                                      record=True)
 
     # -- remote entrywise updates (reference AbstractDistMatrix
     #    QueueUpdate/ProcessQueues/QueuePull, AbstractDistMatrix.hpp:162-171)
@@ -383,6 +427,132 @@ class DistMatrix:
                 f"grid={self.grid.height}x{self.grid.width})")
 
 
+@dataclasses.dataclass(frozen=True)
+class At:
+    """Where a block lies: its grid position, its device and the global
+    (lo, hi) of each of its dimensions."""
+
+    pos: Tuple[int, int]
+    device: torch.device
+    ranges: Tuple[Range, ...]
+
+    @property
+    def rows(self) -> Range:
+        return self.ranges[0]
+
+    @property
+    def cols(self) -> Range:
+        return self.ranges[1]
+
+
+def aligned(X, A: DistMatrix):
+    """``X`` in ``A``'s layout: a DistMatrix relaid out where its layout
+    differs (recorded, as GSPMD reshards), anything else as a tensor."""
+    if not isinstance(X, DistMatrix):
+        return _as_tensor(X)
+    if X.shape != A.shape:
+        raise ValueError(f"shape {X.shape} against {A.shape}")
+    if X.grid is A.grid and X.dist() == A.dist():
+        return X
+    return X._relayout(A.grid, A.coldist, A.rowdist, warn=False)
+
+
+def from_blocks(fn, shape, coldist: Dist, rowdist: Dist, grid: Grid,
+                root: int = 0) -> DistMatrix:
+    """The DistMatrix of ``shape`` laid out ``[coldist, rowdist]`` on
+    ``grid`` whose block at each position is ``fn(at)`` (``at`` the
+    block's :class:`At`).  ``fn`` runs once per distinct (device, ranges),
+    and once per position while a transfer log is open, so that each
+    position records what it fetches."""
+    shape = tuple(int(n) for n in shape)
+    spec = _feasible_spec(shape, partition_spec(coldist, rowdist), grid,
+                          warn=False)
+    memo: Dict[tuple, torch.Tensor] = {}
+    blocks = [[None] * grid.width for _ in range(grid.height)]
+    for i, j in grid.positions():
+        dev = grid.device(i, j)
+        ranges = _block_ranges(shape, spec, grid, i, j)
+        key = (dev, ranges)
+        if key not in memo or transfers.recording:
+            memo[key] = _own(fn(At((i, j), dev, ranges)))
+        blocks[i][j] = memo[key]
+    return DistMatrix(blocks, shape, coldist, rowdist, grid, root)
+
+
+def map_blocks(fn, A: DistMatrix, *others) -> DistMatrix:
+    """A DistMatrix in ``A``'s layout whose block at each position is
+    ``fn(at, a, *o)``: ``at`` the block's :class:`At`, ``a`` A's block and
+    ``o`` the others' (a DistMatrix brought to A's layout by
+    :func:`aligned`; a local array of A's shape sliced by the block's
+    ranges and moved to its device, unrecorded, as :func:`distribute` cuts
+    it)."""
+    others = [aligned(o, A) for o in others]
+
+    def block(at):
+        args = [o.local(*at.pos) if isinstance(o, DistMatrix)
+                else _slice(o, at.ranges).to(at.device) for o in others]
+        return fn(at, A.local(*at.pos), *args)
+
+    return from_blocks(block, A.shape, A.coldist, A.rowdist, A.grid, A.root)
+
+
+def vector_piece(v, lo: int, hi: int, at: At) -> torch.Tensor:
+    """Entries ``lo:hi`` of the vector ``v`` at ``at``'s position: a slice
+    of a local tensor moved to its device (unrecorded), or fetched from a
+    DistMatrix of shape (n,), (n, 1) or (1, n) (recorded)."""
+    if not isinstance(v, DistMatrix):
+        return v.reshape(-1)[lo:hi].to(at.device)
+    if v.ndim == 1:
+        ranges = ((lo, hi),)
+    elif v.shape[1] == 1:
+        ranges = ((lo, hi), (0, 1))
+    else:
+        ranges = ((0, 1), (lo, hi))
+    return v.fetch(ranges, at.pos, at.device).reshape(-1)
+
+
+def reduce_parts(parts, shape, dtype, device=None,
+                 into: Optional[DistMatrix] = None, op: str = "sum"):
+    """Partials summed (``op="sum"``) or maxed (``"amax"``) into a result
+    of ``shape``: each part is (position, global (lo, hi) of each dimension
+    of the result it covers, tensor).
+
+    Without ``into`` the result is a tensor on ``device``, the grid's first
+    position's, recorded as that position's share of an ``all-reduce``.
+    With ``into`` the result is a DistMatrix with ``into``'s dist: each
+    position's block combines the parts that overlap it, recorded as an
+    ``all-reduce`` where the block is whole and a ``reduce-scatter`` where
+    it is cut."""
+    combine = {"sum": torch.add, "amax": torch.maximum}[op]
+    shape = tuple(int(n) for n in shape)
+
+    def block(ranges, dev, dst):
+        out = torch.zeros(tuple(hi - lo for lo, hi in ranges), dtype=dtype,
+                          device=dev)
+        pieces = []
+        for pos, rng, t in parts:
+            cut = [(max(lo, a), min(hi, b))
+                   for (lo, hi), (a, b) in zip(rng, ranges)]
+            if any(lo >= hi for lo, hi in cut):
+                continue
+            sub = t[tuple(slice(lo - p, hi - p)
+                          for (lo, hi), (p, _) in zip(cut, rng))]
+            at = tuple(slice(lo - a, hi - a)
+                       for (lo, hi), (a, _) in zip(cut, ranges))
+            out[at] = combine(out[at], sub.to(dev))
+            pieces.append((sub, pos))
+        if transfers.recording:
+            whole = all(hi - lo == n for (lo, hi), n in zip(ranges, shape))
+            transfers.record("all-reduce" if whole else "reduce-scatter",
+                             out, pieces, dst)
+        return out
+
+    if into is None:
+        return block(tuple((0, n) for n in shape), device, (0, 0))
+    return from_blocks(lambda at: block(at.ranges, at.device, at.pos), shape,
+                       into.coldist, into.rowdist, into.grid, into.root)
+
+
 def _as_tensor(array) -> torch.Tensor:
     """A tensor of ``array``: a tensor as it is, anything else as a fresh
     host copy (NumPy's dtype kept)."""
@@ -394,8 +564,9 @@ def _as_tensor(array) -> torch.Tensor:
 def distribute(array, coldist: Dist = MC, rowdist: Dist = MR,
                grid: Optional[Grid] = None, root: int = 0) -> DistMatrix:
     """Place an array (NumPy, or a tensor) onto a grid with the given
-    distribution: one copy per distinct device of the grid, cut into the
-    positions' blocks (the default grid is every CUDA device)."""
+    distribution: each position's block copied to its device (the default
+    grid is every CUDA device); not recorded, as ``jax.device_put`` is in
+    no HLO."""
     if grid is None:
         grid = Grid.default()
     return DistMatrix._from_whole(_as_tensor(array), coldist, rowdist, grid,
@@ -403,8 +574,9 @@ def distribute(array, coldist: Dist = MC, rowdist: Dist = MR,
 
 
 def as_array(A) -> torch.Tensor:
-    """The whole matrix of a DistMatrix on its grid's first device (the
-    block itself on a 1×1 grid), or the array itself as a tensor."""
+    """The whole matrix of a DistMatrix at its grid's first position (the
+    block itself on a 1×1 grid; an ``all-gather`` in an open transfer log
+    otherwise), or the array itself as a tensor."""
     if isinstance(A, DistMatrix):
         return A.assemble()
     if isinstance(A, torch.Tensor):
@@ -413,9 +585,13 @@ def as_array(A) -> torch.Tensor:
 
 
 def as_numpy(A) -> np.ndarray:
-    """The whole matrix (:func:`as_array`) as a host NumPy array, from any
-    device."""
-    return as_array(A).detach().cpu().resolve_conj().resolve_neg().numpy()
+    """The whole matrix as a host NumPy array, from any device: a host
+    read, not recorded (reading a global ``jax.Array`` is in no HLO)."""
+    if isinstance(A, DistMatrix):
+        t = A._gather(tuple((0, n) for n in A.shape), torch.device("cpu"))
+    else:
+        t = as_array(A)
+    return t.detach().cpu().resolve_conj().resolve_neg().numpy()
 
 
 def like(A, data) -> "DistMatrix | torch.Tensor":
@@ -432,5 +608,6 @@ def grid_of(*mats) -> Optional[Grid]:
     return None
 
 
-__all__ = ["DistMatrix", "as_array", "as_numpy", "distribute", "grid_of",
-           "like"]
+__all__ = ["At", "DistMatrix", "aligned", "as_array", "as_numpy",
+           "distribute", "from_blocks", "grid_of", "like", "map_blocks",
+           "reduce_parts", "vector_piece"]

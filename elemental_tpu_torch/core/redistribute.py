@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from .dist import Dist
-from .distmatrix import DistMatrix, as_array
+from .distmatrix import DistMatrix, map_blocks
 from .grid import Grid
 from ..utils import transfers
 
@@ -88,15 +88,13 @@ def contract(partial: torch.Tensor, grid: Grid, coldist: Dist, rowdist: Dist,
 def axpy_contract(alpha, partial: torch.Tensor, C: DistMatrix,
                   axis: int = 0) -> DistMatrix:
     """C += α·Σ_partial (reference ``AxpyContract.hpp``: the SUMMA reduction
-    step)."""
+    step): the sum laid out as C, added to C's blocks."""
     partial = torch.as_tensor(partial)
-    c = as_array(C)
-    data = c + alpha * torch.sum(partial.to(c.device), dim=axis)
-    out = DistMatrix._from_whole(data, C.coldist, C.rowdist, C.grid, C.root,
-                                 warn=True)
+    summed = DistMatrix._from_whole(torch.sum(partial, dim=axis), C.coldist,
+                                    C.rowdist, C.grid, C.root, warn=True)
     if transfers.recording:
-        _record_reduction(out, partial.shape[axis])
-    return out
+        _record_reduction(summed, partial.shape[axis])
+    return map_blocks(lambda _, c, s: c + alpha * s, C, summed)
 
 
 def translate_between_grids(A: DistMatrix, grid: Grid,

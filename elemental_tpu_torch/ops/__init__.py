@@ -1,6 +1,7 @@
 """BLAS-like tier of the port (counterpart of ``elemental_tpu/ops``;
-reference ``src/blas_like``, layer L5): plain torch on the grid's first
-device, and the SUMMA and 3-D GEMM variants over the grid's blocks."""
+reference ``src/blas_like``, layer L5): plain torch on the blocks of a
+``DistMatrix`` (SUMMA for the products) or on local tensors, and the 3-D
+GEMM over a mesh of whole tensors."""
 
 from .level1 import *  # noqa: F401,F403
 from .level2 import (apply_givens_sequence, gemv, ger, geru, hemv, her, her2,

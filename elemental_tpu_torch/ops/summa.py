@@ -4,9 +4,10 @@
 
 The variants are the JAX package's:
 
-  * ``xla``          — one ``torch.matmul`` of the whole operands, cut as
-                       [MC,MR] by the caller (the JAX package lets GSPMD
-                       partition it).
+  * ``xla``          — one ``torch.matmul`` on a 1×1 grid; on more
+                       positions the ``stationary_c`` blocks, whose panel
+                       gathers are the ones GSPMD inserts for the JAX
+                       package's ``xla`` product.
   * ``stationary_c`` — each position gathers its row of A blocks along
                        'mr' and its column of B blocks along 'mc' and does
                        one local matmul (SUMMA-Dot).
@@ -23,8 +24,10 @@ accumulation order is the JAX package's (``acc = acc + a_cur @ b_slice``),
 so float64 results agree with it to rounding.  Blocks move with
 ``.to(device)`` where two positions' devices differ.
 
-Every copy between positions is recorded in an open
-:func:`~..utils.transfers.count_transfers` log: the panel gathers as
+:func:`summa_dist` runs them on two DistMatrix operands' own [MC,MR]
+blocks; :func:`gemm_summa` takes whole tensors, pads them to the grid and
+returns the whole product.  Every copy between positions is recorded in an
+open :func:`~..utils.transfers.count_transfers` log: the panel gathers as
 ``all-gather``, the ring's reads as ``collective-permute``.
 """
 
@@ -34,11 +37,13 @@ from typing import List
 
 import torch
 
-from ..core.distmatrix import _cut
+from ..core.dist import MC, MR
+from ..core.distmatrix import DistMatrix, _cut, from_blocks
 from ..core.grid import Grid
 from ..utils import transfers
 
 Blocks = List[List[torch.Tensor]]
+
 
 def _pad_to(x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     pm, pn = m - x.shape[0], n - x.shape[1]
@@ -152,6 +157,33 @@ def summa_blocks(a: Blocks, b: Blocks, grid: Grid, alg: str) -> Blocks:
              for j in range(grid.width)] for i in range(grid.height)]
 
 
+def summa_dist(A: DistMatrix, B: DistMatrix, alg: str) -> DistMatrix:
+    """C = A·B as an [MC,MR] DistMatrix on A's grid, computed on the
+    operands' blocks: each brought to [MC,MR] first (a recorded
+    redistribution where its layout differs).  Where the grid divides
+    every dimension, the ``alg`` variant runs on the blocks as they are
+    (``xla`` as ``stationary_c``); otherwise each position multiplies the
+    rows of A and the columns of B its block of C needs (a dimension the
+    grid does not divide is replicated, so those rows or columns are
+    mostly its own already).  One ``torch.matmul`` on a 1×1 grid."""
+    grid = A.grid
+    A, B = (X if X.grid is grid and X.dist() == (MC, MR)
+            else X._relayout(grid, MC, MR, warn=False) for X in (A, B))
+    (m, k), n = A.shape, B.shape[1]
+    if k != B.shape[0]:
+        raise ValueError(f"inner dimensions differ: {A.shape} @ {B.shape}")
+    if grid.size == 1:
+        return DistMatrix([[torch.matmul(A.local(0, 0), B.local(0, 0))]],
+                          (m, n), MC, MR, grid)
+    if A.spec == B.spec == ("mc", "mr"):
+        blocks = summa_blocks(A._blocks, B._blocks, grid,
+                              "stationary_c" if alg == "xla" else alg)
+        return DistMatrix(blocks, (m, n), MC, MR, grid)
+    return from_blocks(lambda at: torch.matmul(
+        A.fetch((at.rows, (0, k)), at.pos, at.device),
+        B.fetch(((0, k), at.cols), at.pos, at.device)), (m, n), MC, MR, grid)
+
+
 def gemm_summa(A: torch.Tensor, B: torch.Tensor, grid: Grid,
                alg: str = "stationary_c") -> torch.Tensor:
     """Explicit SUMMA.  A: (m,k), B: (k,n), whole tensors; the blocks are cut
@@ -165,7 +197,7 @@ def gemm_summa(A: torch.Tensor, B: torch.Tensor, grid: Grid,
                          f"{tuple(B.shape)}")
     # SUMMA needs k divisible by both axes (A splits k over 'mr', B over 'mc').
     mp, kp, np_ = _round_up(m, h), _round_up(k, h * w), _round_up(n, w)
-    # [MC,MR] blocks: views of one copy per distinct device
+    # [MC,MR] blocks
     a = _cut(_pad_to(A, mp, kp), ("mc", "mr"), grid)
     b = _cut(_pad_to(B, kp, np_), ("mc", "mr"), grid)
     c = summa_blocks(a, b, grid, alg)

@@ -22,10 +22,16 @@ their copies never leave it.
 
 What the count is not: it is the bytes that cross positions in the port's
 own schedule, logically.  It does not measure a link's traffic, and on one
-card no byte leaves the device.  Cutting a whole tensor into blocks at an
-entry point and assembling a result at its exit are the counterparts of
-``jax.device_put`` and of reading a global ``jax.Array``, which no HLO
-audit sees either; they are not recorded.
+card no byte leaves the device.  Placing host data on a grid
+(``distribute``, the counterpart of ``jax.device_put``) and reading a
+matrix to the host (``to_numpy``, ``as_numpy``, the ``assemble`` of a
+``DistMultiVec`` or a distributed sparse matrix: the counterparts of
+reading a global ``jax.Array``) are not recorded, as no HLO audit sees
+them.  Inside the library they are: assembling a ``DistMatrix`` at the
+grid's first position (``as_array``) is an ``all-gather`` there, and
+cutting a whole result held there into blocks (``like``) a
+``collective-permute`` at each other position, copies that GSPMD does
+not make where it computes on the shards.
 
 Outside :func:`count_transfers`, a hook costs one check of the module-level
 flag :data:`recording`.

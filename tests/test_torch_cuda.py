@@ -1369,6 +1369,120 @@ def test_gemm_f32_has_no_tf32(cuda):
                  / torch.linalg.norm(ref)) <= 1e-5
 
 
+def _block_cases():
+    """name → fn(ops, A, B, C, x, y): block-routed calls of the BLAS tier on
+    [MC,MR] operands."""
+    return {
+        "axpy": lambda o, A, B, C, x, y: o.axpy(2.0, A, B),
+        "index_dependent_map": lambda o, A, B, C, x, y:
+            o.index_dependent_map(A, lambda i, j, v: v + i - 2 * j),
+        "shift_diagonal": lambda o, A, B, C, x, y: o.shift_diagonal(A, 1.5, 3),
+        "dot": lambda o, A, B, C, x, y: o.dot(A, B),
+        "nrm2": lambda o, A, B, C, x, y: o.nrm2(A),
+        "max_abs_loc": lambda o, A, B, C, x, y: o.max_abs_loc(A),
+        "column_norms": lambda o, A, B, C, x, y: o.column_norms(A),
+        "get_diagonal": lambda o, A, B, C, x, y: o.get_diagonal(A, -5),
+        "diagonal_scale": lambda o, A, B, C, x, y: o.diagonal_scale("R", x, A),
+        "reshape": lambda o, A, B, C, x, y: o.reshape(A, 64, 1024),
+        "swap_rows": lambda o, A, B, C, x, y: o.swap_rows(A, 3, 200),
+        "concatenate": lambda o, A, B, C, x, y: o.concatenate([A, B], 1),
+        "gemv": lambda o, A, B, C, x, y: o.gemv("T", 1.5, A, x, 0.5, y),
+        "ger": lambda o, A, B, C, x, y: o.ger(2.0, x, y, A),
+        "symv": lambda o, A, B, C, x, y: o.symv("L", 1.0, A, x),
+        "her2": lambda o, A, B, C, x, y: o.her2("U", 0.5, x, y, A),
+        "trmv": lambda o, A, B, C, x, y: o.trmv("L", "C", "U", A, x),
+        "givens": lambda o, A, B, C, x, y: o.apply_givens_sequence(
+            "L", x[:255], y[:255], A),
+        "gemm": lambda o, A, B, C, x, y: o.gemm("N", "T", 1.0, A, B, 0.5, C),
+        "gemm pipelined": lambda o, A, B, C, x, y: o.gemm(
+            "T", "N", 1.0, A, B, alg="pipelined"),
+        "symm": lambda o, A, B, C, x, y: o.symm("R", "U", 2.0, A, B, 1.0, C),
+        "herk": lambda o, A, B, C, x, y: o.herk("L", "C", 1.0, A, 0.5, C),
+        "trrk": lambda o, A, B, C, x, y: o.trrk("U", "N", "T", 1.0, A, B,
+                                                0.5, C),
+        "trmm": lambda o, A, B, C, x, y: o.trmm("L", "U", "T", "N", 1.0, A,
+                                                B),
+        "twosided_trmm": lambda o, A, B, C, x, y: o.twosided_trmm("L", "N",
+                                                                  A, B),
+        "hermitian_from_evd": lambda o, A, B, C, x, y:
+            o.hermitian_from_evd("U", x, A),
+    }
+
+
+def _values(x):
+    """Host float64 values of a result (tuples flattened)."""
+    if isinstance(x, tuple):
+        return np.concatenate([_values(v).ravel() for v in x])
+    if hasattr(x, "to_numpy"):
+        return np.asarray(x.to_numpy(), dtype=np.float64)
+    return np.asarray(x.detach().cpu(), dtype=np.float64)
+
+
+@pytest.mark.parametrize("name", sorted(_block_cases()))
+def test_blas_blocks_on_card_match_cpu(cuda, name):
+    """The block-routed BLAS calls on a 2×2 grid over the card equal the
+    same calls on a 2×2 grid over the CPU within 1e-12 (float64), and every
+    block of a distributed result lies on the card and owns its
+    storage."""
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import MC, MR, Grid, distribute
+    fn = _block_cases()[name]
+    mats = [_dense((256, 256), torch.float64, "cpu", s) for s in (5, 6, 7)]
+    vecs = [_dense((256,), torch.float64, "cpu", s) for s in (8, 9)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        g = Grid(devices=[dev] * 4, height=2)
+        outs.append(fn(ops, *(distribute(m.to(dev), MC, MR, g)
+                              for m in mats), *(v.to(dev) for v in vecs)))
+    if hasattr(outs[0], "grid"):
+        for i, j in outs[0].grid.positions():
+            blk = outs[0].local(i, j)
+            assert blk.is_cuda
+            assert blk.untyped_storage().nbytes() == \
+                blk.numel() * blk.element_size()
+    got, want = (_values(o) for o in outs)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+def test_blocks_own_their_storage_on_card(cuda):
+    """An 8192×4096 float64 [MC,MR] matrix on a 2×2 grid over the card: each
+    block, made by distribute and by an op, holds only its own 128 MiB."""
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import MC, MR, STAR, Grid, distribute
+    g = Grid(devices=[cuda] * 4, height=2)
+    a = _dense((8192, 4096), torch.float64, cuda, 10)
+    for X in (distribute(a, MC, MR, g), ops.scale(2.0, distribute(a, MC, MR,
+                                                                   g))):
+        sizes = {X.local(i, j).untyped_storage().nbytes()
+                 for i, j in g.positions()}
+        assert sizes == {4096 * 2048 * 8}
+        assert len({X.local(i, j).data_ptr() for i, j in g.positions()}) == 4
+    R = distribute(a, STAR, STAR, g)
+    assert len({R.local(i, j).data_ptr() for i, j in g.positions()}) == 1
+
+
+def test_herk_f32_on_blocks_has_no_tf32(cuda):
+    """A float32 herk on the 2×2 grid's blocks is true float32 on the card
+    even when the caller allows TF32 (TF32 would read about 1e-3)."""
+    from elemental_tpu_torch import ops
+    from elemental_tpu_torch.core import MC, MR, Grid, as_array, distribute
+    g = Grid(devices=[cuda] * 4, height=2)
+    a = _dense((1024, 512), torch.float32, cuda, 11)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        H = ops.herk("L", "N", 1.0, distribute(a, MC, MR, g))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ad = a.double()
+    ref = torch.tril(ad @ ad.T)
+    err = float(torch.linalg.norm(as_array(H).double() - ref)
+                / torch.linalg.norm(ref))
+    assert err <= 1e-5, err
+
+
 @pytest.mark.parametrize("alg", ["stationary_c", "stationary_a",
                                  "stationary_b", "pipelined"])
 def test_summa_2x2_on_card_matches_1x1(cuda, alg):

@@ -224,6 +224,7 @@ def test_port_imports_without_jax():
             "import elemental_tpu_torch.core.redistribute\n"
             "import elemental_tpu_torch.core.environment\n"
             "import elemental_tpu_torch.ops.level3\n"
+            "import elemental_tpu_torch.ops._blocks\n"
             "import elemental_tpu_torch.ops.summa\n"
             "import elemental_tpu_torch.ops.gemm3d\n"
             "import elemental_tpu_torch.examples.lp_direct_large\n"
