@@ -1,12 +1,21 @@
 """Profiling/tracing (counterpart of ``elemental_tpu/core/profiling.py``;
-reference ``include/El/core/Profiling.hpp:138-190``: NVTX region annotation
+reference ``include/El/core/Profiling.hpp:138-190``: region annotation
 + synchronizing profiling).
 
-Regions are ``torch.profiler.record_function`` ranges, and NVTX ranges
-where a CUDA device is present, so both a ``torch.profiler`` trace and an
-NVTX-reading tool see them.  Synchronizing mode waits for the card at each
-region's end (``torch.cuda.synchronize``), so the host timers measure device
-time.
+A region is active while a ``torch.profiler`` records (:func:`start_trace`,
+or any profiler a caller runs) or after ``enable_profiling(True)``; an
+inactive :func:`profile_region` returns one shared null context, so a region
+on a hot path costs one check.  An active region is a profiler range on the
+clock the profiler's device trace shares, and adds its host time to
+:func:`stage_times`.  The range is recorded as a host operator
+(``torch._C._profiler._RecordFunctionFast``, a ``cpu_op`` in the trace), not
+as a ``record_function`` user annotation: the profiler projects a user
+annotation onto the device timeline over the kernels launched inside it,
+and a trace whose events carry no activity type (torch 2.11) cannot tell
+that projection from a device operation.  NVTX ranges, for NVTX-reading
+tools, are pushed only under an explicit ``enable_profiling(True)``.
+Synchronizing mode waits for the card at each active region's end
+(``torch.cuda.synchronize``), so the host timers measure device time.
 """
 
 from __future__ import annotations
@@ -19,13 +28,18 @@ from typing import Dict, Optional
 
 import torch
 
-_enabled = True
-_sync = False  # synchronizing profiling (HYDROGEN_DEFAULT_SYNC_PROFILING analog)
+_enabled = False
+_sync = False  # synchronizing profiling (HYDROGEN_DEFAULT_SYNC_PROFILING)
 _stage_times: Dict[str, float] = {}
 _trace: Optional[tuple] = None
+_NULL = contextlib.nullcontext()
+_profiler_recording = torch.autograd._profiler_enabled
+_host_range = torch._C._profiler._RecordFunctionFast
 
 
 def enable_profiling(on: bool = True) -> None:
+    """Make every region active, with NVTX ranges where a card is present
+    (without it, regions are active only while a profiler records)."""
     global _enabled
     _enabled = on
 
@@ -37,26 +51,46 @@ def enable_sync_profiling(on: bool = True) -> None:
     _sync = on
 
 
-@contextlib.contextmanager
-def profile_region(name: str, color: Optional[int] = None):
-    """RAII region annotation (reference ``AUTO_PROFILE_REGION``)."""
-    if not _enabled:
-        yield
-        return
-    cuda = torch.cuda.is_available()
-    t0 = time.perf_counter()
-    if cuda:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if cuda:
-            torch.cuda.nvtx.range_pop()
-            if _sync:
+class _Region:
+    """One active region: a profiler range, an NVTX range when ``nvtx``,
+    and its host time added to :func:`stage_times`."""
+
+    __slots__ = ("name", "nvtx", "range", "t0")
+
+    def __init__(self, name: str, nvtx: bool):
+        self.name = name
+        self.nvtx = nvtx
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self.range = _host_range(self.name)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            self.range.__exit__(*exc)
+        finally:
+            if self.nvtx:
+                torch.cuda.nvtx.range_pop()
+            if _sync and torch.cuda.is_available():
                 torch.cuda.synchronize()
-        _stage_times[name] = (_stage_times.get(name, 0.0)
-                              + time.perf_counter() - t0)
+            _stage_times[self.name] = (_stage_times.get(self.name, 0.0)
+                                       + time.perf_counter() - self.t0)
+        return False
+
+
+def profile_region(name: str):
+    """Region annotation (reference ``AUTO_PROFILE_REGION``), used as
+    ``with profile_region("el.layer"):``; the shared null context unless a
+    profiler records or profiling is enabled."""
+    if _enabled:
+        return _Region(name, torch.cuda.is_available())
+    if _profiler_recording():
+        return _Region(name, False)
+    return _NULL
 
 
 def profiled(name: Optional[str] = None):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.policy import real_working_dtype
+from ..core.profiling import profile_region, profiled
 from ..sparse.csr import SparseMatrix
 from ..sparse_direct.ea_plan import EAPlan, build_ea_plan
 from ..sparse_direct.numeric import LDLFactorization, factor as _mf_factor
@@ -58,6 +59,7 @@ class KKTBuilder:
                           np.asarray(cols, np.int64)))
         return len(self._dyn) - 1
 
+    @profiled("el.kkt.finalize")
     def finalize(self, perm: Optional[np.ndarray] = None, relax: int = 8,
                  cutoff: int = 64, *, device, dtype) -> "KKTSystem":
         """Host ordering + symbolic analysis + extend-add plan; the plans and
@@ -126,6 +128,7 @@ class KKTSystem:
             vals.index_add_(0, pos, v.to(vals.dtype))
         return vals
 
+    @profiled("el.kkt.equilibrate")
     def equilibrate(self, vals: torch.Tensor, iters: int = 3
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Symmetric Ruiz scaling D·K·D (pattern unchanged), bounding the
@@ -141,6 +144,7 @@ class KKTSystem:
             v = vals * d[self.csr_rows] * d[self.csr_cols]
         return v, d
 
+    @profiled("el.kkt.prepare")
     def prepare(self, vals: torch.Tensor, spd: bool = False,
                 equilibrate: bool = True,
                 pivot_floor=None) -> "KKTFactor":
@@ -159,9 +163,10 @@ class KKTSystem:
         num = _mf_factor(self.symb, v, ea_plan=self.ea_plan,
                          dtype=v.dtype, spd=spd, pivot_floor=pivot_floor)
         if pivot_floor is None and bool((num.d == 0).any()):
-            num = _mf_factor(self.symb, v, ea_plan=self.ea_plan,
-                             dtype=v.dtype, spd=spd,
-                             pivot_floor=self.reg * scale * scale)
+            with profile_region("el.kkt.factor_retake"):
+                num = _mf_factor(self.symb, v, ea_plan=self.ea_plan,
+                                 dtype=v.dtype, spd=spd,
+                                 pivot_floor=self.reg * scale * scale)
         return KKTFactor(self, vals, num.pool, num.d, scale)
 
     def matvec(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -239,6 +244,7 @@ class KKTFactor:
             return self.solve_context()
         return None
 
+    @profiled("el.kkt.solve_refined")
     def solve_refined(self, rhs: torch.Tensor,
                       reg_diag: Optional[torch.Tensor] = None,
                       iters: int = 2, ctx=None) -> torch.Tensor:

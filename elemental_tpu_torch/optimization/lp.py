@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.policy import real_working_dtype
+from ..core.profiling import profile_region, profiled
 from ..extended import dd_add, dd_dot, dd_neg, two_prod, two_sum
 from ..sparse.csr import SparseMatrix
 from ..sparse.io import MPSData
@@ -213,6 +214,7 @@ def _dd_gap(bj, cj, x, y) -> torch.Tensor:
     return torch.abs(diff.hi + diff.lo) / (1 + torch.abs(cx.hi))
 
 
+@profiled("el.lp.call")
 def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
               ctrl: Optional[LPCtrl] = None, *, device,
               dtype) -> LPResult:
@@ -222,21 +224,22 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     dtype = real_working_dtype(dtype)
     device = torch.device(device)
     m, n = A.shape
-    A, r, s = sparse_ruiz(A)
-    b = b / r
-    c = c / s
+    T = lambda a: torch.as_tensor(a).to(device, dtype)  # noqa: E731
+    with profile_region("el.lp.scale"):
+        A, r, s = sparse_ruiz(A)
+        b = b / r
+        c = c / s
+        Ad = A.device_csr(device=device, dtype=dtype)
+        Atd = A.transpose().device_csr(device=device, dtype=dtype)
+        ea = A.device_ell(device=device, dtype=dtype)
+        eat = A.transpose().device_ell(device=device, dtype=dtype)
+        bj, cj = T(b), T(c)
 
     gamma, tol = _resolve_numerics(ctrl, dtype)
     delta = gamma
     kkt, _ = _build_lp_kkt(A, gamma, delta, ctrl.ordering, device=device,
                            dtype=dtype)
-    T = lambda a: torch.as_tensor(a).to(device, dtype)  # noqa: E731
     reg_diag = kkt.reg
-    Ad = A.device_csr(device=device, dtype=dtype)
-    Atd = A.transpose().device_csr(device=device, dtype=dtype)
-    ea = A.device_ell(device=device, dtype=dtype)
-    eat = A.transpose().device_ell(device=device, dtype=dtype)
-    bj, cj = T(b), T(c)
     bnorm = float(np.linalg.norm(b)) + 1.0
     cnorm = float(np.linalg.norm(c)) + 1.0
     tau = ctrl.tau
@@ -339,33 +342,35 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
         p, q = ksolve(fact_ctx, rmu / x - rc, rb)
         return post(x, y, z, p, q, rb, rc, gap, nb)
 
-    x, y, z = start()
-    # neighborhood scale μ₀/‖rb₀‖ for the scale-free backoff safeguard
-    mu0 = float(x @ z) / n
-    rb0n = float(torch.linalg.norm(bj - Ad.matvec(x))) / bnorm
-    nb = torch.tensor(mu0 / max(rb0n, 1e-30), dtype=dtype, device=device)
+    with profile_region("el.lp.start"):
+        x, y, z = start()
+        # neighborhood scale μ₀/‖rb₀‖ for the scale-free backoff safeguard
+        mu0 = float(x @ z) / n
+        rb0n = float(torch.linalg.norm(bj - Ad.matvec(x))) / bnorm
+        nb = torch.tensor(mu0 / max(rb0n, 1e-30), dtype=dtype, device=device)
     it = 0
     converged = False
     best_metric, best_xyz = np.inf, None
     for it in range(1, ctrl.max_iters + 1):
-        xp, yp, zp = x, y, z
-        x, y, z, rbn, rcn, gap, ok = step(x, y, z, nb)
-        rbn, rcn, gap = float(rbn), float(rcn), float(gap)
-        metric = max(rbn / bnorm, rcn / cnorm, gap)
-        if np.isfinite(metric) and metric < best_metric:
-            # residuals belong to the PRE-step iterate: track the best
-            best_metric, best_xyz = metric, (xp, yp, zp)
-        if np.isfinite(metric) and metric < tol:
-            # the PRE-step iterate meets the tolerance: convergence stands
-            # even when the step just taken blew up
-            x, y, z = xp, yp, zp
-            converged = True
-            break
-        if not ok or not np.isfinite(rbn + rcn + gap):
-            x, y, z = best_xyz if best_xyz is not None else (xp, yp, zp)
-            break
-        if ctrl.verbose:
-            print(f"  it {it}: rb={rbn:.2e} rc={rcn:.2e} gap={gap:.2e}")
+        with profile_region("el.lp.iteration"):
+            xp, yp, zp = x, y, z
+            x, y, z, rbn, rcn, gap, ok = step(x, y, z, nb)
+            rbn, rcn, gap = float(rbn), float(rcn), float(gap)
+            metric = max(rbn / bnorm, rcn / cnorm, gap)
+            if np.isfinite(metric) and metric < best_metric:
+                # residuals belong to the PRE-step iterate: track the best
+                best_metric, best_xyz = metric, (xp, yp, zp)
+            if np.isfinite(metric) and metric < tol:
+                # the PRE-step iterate meets the tolerance: convergence
+                # stands even when the step just taken blew up
+                x, y, z = xp, yp, zp
+                converged = True
+                break
+            if not ok or not np.isfinite(rbn + rcn + gap):
+                x, y, z = best_xyz if best_xyz is not None else (xp, yp, zp)
+                break
+            if ctrl.verbose:
+                print(f"  it {it}: rb={rbn:.2e} rc={rcn:.2e} gap={gap:.2e}")
     else:
         # max_iters exhausted: the last iterate is unevaluated, and f32
         # trajectories degrade after stagnating; keep the best iterate

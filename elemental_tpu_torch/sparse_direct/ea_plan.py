@@ -36,6 +36,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.profiling import profiled
 from ..kernels.extend_add import RUN_BLOCK
 from .symbolic import SymbolicFactorization, index_dtype
 
@@ -179,6 +180,7 @@ def build_ea_level(dst: np.ndarray, src: np.ndarray, lo: int, hi: int,
         n_run_pairs=int(sd.size), lo=lo, hi=hi, src_max=int(src.max()))
 
 
+@profiled("el.ea_plan.build")
 def build_ea_plan(symb: SymbolicFactorization) -> EAPlan:
     """The extend-add plan of every level of ``symb`` that has child Schur
     elements (host NumPy; move it with :meth:`EAPlan.to`)."""

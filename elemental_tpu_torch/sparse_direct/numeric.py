@@ -38,6 +38,7 @@ import dataclasses
 
 import torch
 
+from ..core.profiling import profile_region, profiled
 from ..kernels.extend_add import extend_add
 from ..utils import transfers
 from .ea_plan import EAPlan
@@ -200,12 +201,14 @@ class LDLFactorization:
     conjugate: bool = False      # L·D·Lᴴ (Hermitian) instead of L·D·Lᵀ
 
     # -- solves -------------------------------------------------------------
+    @profiled("el.ldl.solve")
     def solve(self, b, ctx=None) -> torch.Tensor:
         """x = A⁻¹·b by forward, diagonal and backward tree solves.
         ``ctx``: the panel inverses from :meth:`solve_context`."""
         with full_fp32_matmul():
             return self._solve_impl(b, ctx)
 
+    @profiled("el.ldl.solve_context")
     def solve_context(self):
         """Per-level explicit panel inverses L⁻¹, computed once per factor:
         every later solve's level step is then one batched matmul.  Applying
@@ -233,11 +236,14 @@ class LDLFactorization:
         # x extended with a dummy row absorbing padded scatter traffic
         xe = torch.cat([x[symb.perm], x.new_zeros((1, k))])
         for i, lev in enumerate(symb.levels):
-            self._level_solve(xe, lev, True, None if ctx is None else ctx[i])
+            with profile_region("el.ldl.solve.forward"):
+                self._level_solve(xe, lev, True,
+                                  None if ctx is None else ctx[i])
         xe[:n] = xe[:n] / self.d[:, None]
         for i in reversed(range(len(symb.levels))):
-            self._level_solve(xe, symb.levels[i], False,
-                              None if ctx is None else ctx[i])
+            with profile_region("el.ldl.solve.backward"):
+                self._level_solve(xe, symb.levels[i], False,
+                                  None if ctx is None else ctx[i])
         out = xe[:n][symb.iperm]
         return out[:, 0] if squeeze else out
 
@@ -321,6 +327,16 @@ class LDLFactorization:
         return (int((d > 0).sum()), int((d < 0).sum()), int((d == 0).sum()))
 
 
+def _front_kind(spd: bool, max_ns: int, panel_blocksize: int) -> str:
+    """The one-device front kernel a level (or chunk) takes: "spd" (the
+    Cholesky kernel), "blocked" (:func:`_masked_partial_ldl_blocked`,
+    above ``panel_blocksize`` eliminated columns) or "rank1"
+    (:func:`_masked_partial_ldl`)."""
+    if spd:
+        return "spd"
+    return "blocked" if max_ns > panel_blocksize else "rank1"
+
+
 # the batch split's threshold (the JAX package's, ``_shard_level``): a
 # level is split over the positions when it has at least one front a
 # position and nf·S³ reaches it
@@ -332,6 +348,7 @@ SPLIT_MIN_WORK = 2e9
 DIST_FRONT_MIN = 1536
 
 
+@profiled("el.ldl.factor")
 def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
            conjugate: bool = False, reg=None, spd: bool = False,
            pivot_floor=None, panel_blocksize: int = 32, grid=None,
@@ -442,20 +459,22 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
         regp = torch.as_tensor(reg).to(dev, dtype)[symb.perm]
 
     # assemble every level's A entries up front (independent of elimination)
-    for lev in symb.levels:
-        if lev.asm_dst.numel():
-            vals = a_vals[lev.asm_src]
-            if hermitian:
-                vals = torch.where(lev.asm_conj, vals.conj(), vals)
-            pool.index_add_(0, lev.asm_dst, vals)
-        if regp is not None and lev.diag_dst.numel():
-            pool.index_add_(0, lev.diag_dst, regp[lev.diag_cols])
+    with profile_region("el.ldl.assemble"):
+        for lev in symb.levels:
+            if lev.asm_dst.numel():
+                vals = a_vals[lev.asm_src]
+                if hermitian:
+                    vals = torch.where(lev.asm_conj, vals.conj(), vals)
+                pool.index_add_(0, lev.asm_dst, vals)
+            if regp is not None and lev.diag_dst.numel():
+                pool.index_add_(0, lev.diag_dst, regp[lev.diag_cols])
 
     def kernel(fronts, ns, max_ns, pf):
         """One level's (or chunk's) masked partial factor, in place."""
-        if spd:
+        kind = _front_kind(spd, max_ns, panel_blocksize)
+        if kind == "spd":
             _masked_partial_spd(fronts, ns, max_ns, conjugate)
-        elif max_ns > panel_blocksize:
+        elif kind == "blocked":
             _masked_partial_ldl_blocked(fronts, ns, max_ns, conjugate,
                                         nb=panel_blocksize, pf=pf)
         else:
@@ -465,31 +484,38 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
         tree_axis = "mc"
     d = torch.zeros(symb.n, dtype=dtype, device=dev)
     for li, lev in enumerate(symb.levels):
-        if li in ea_plan.levels:
-            extend_add(pool, ea_plan.levels[li])
-        nf = lev.sn_ids.shape[0]
-        S = lev.front_size
-        fronts = pool[lev.offset:lev.offset + nf * S * S].view(nf, S, S)
-        max_ns = int(lev.ns.max())
-        ns = torch.as_tensor(lev.ns).to(dev)
-        pf = None if pfp is None or spd else pfp[lev.front_rows]
-        if grid is not None and S >= dist_front_min and nf <= 8 \
-                and not dtype.is_complex:
-            from .dist_front import PANEL, dist_partial_ldl, padded_size
-            pfd = None if pfp is None else pfp[lev.front_rows]
-            rl = padded_size(S, PANEL, grid.size) // grid.size
-            for f in range(nf):
-                dist_partial_ldl(fronts[f], int(lev.ns[f]), grid,
-                                 conjugate=conjugate,
-                                 pf=None if pfd is None else pfd[f])
-                _record_replication(
-                    [fronts[f][q * rl:(q + 1) * rl]
-                     for q in range(grid.size)],
-                    [[q] for q in range(grid.size)], grid.size)
-        elif grid is not None and nf >= grid.size \
-                and nf * S ** 3 >= SPLIT_MIN_WORK:
-            _shard_level(fronts, ns, max_ns, pf, grid, tree_axis, kernel)
-        else:
-            kernel(fronts, ns, max_ns, pf)
-        d[lev.diag_cols] = pool[lev.diag_dst]
+        with profile_region("el.ldl.level"):
+            if li in ea_plan.levels:
+                with profile_region("el.ldl.extend_add"):
+                    extend_add(pool, ea_plan.levels[li])
+            nf = lev.sn_ids.shape[0]
+            S = lev.front_size
+            fronts = pool[lev.offset:lev.offset + nf * S * S].view(nf, S, S)
+            max_ns = int(lev.ns.max())
+            ns = torch.as_tensor(lev.ns).to(dev)
+            pf = None if pfp is None or spd else pfp[lev.front_rows]
+            if grid is not None and S >= dist_front_min and nf <= 8 \
+                    and not dtype.is_complex:
+                from .dist_front import PANEL, dist_partial_ldl, padded_size
+                pfd = None if pfp is None else pfp[lev.front_rows]
+                rl = padded_size(S, PANEL, grid.size) // grid.size
+                with profile_region("el.ldl.front.dist"):
+                    for f in range(nf):
+                        dist_partial_ldl(fronts[f], int(lev.ns[f]), grid,
+                                         conjugate=conjugate,
+                                         pf=None if pfd is None else pfd[f])
+                        _record_replication(
+                            [fronts[f][q * rl:(q + 1) * rl]
+                             for q in range(grid.size)],
+                            [[q] for q in range(grid.size)], grid.size)
+            elif grid is not None and nf >= grid.size \
+                    and nf * S ** 3 >= SPLIT_MIN_WORK:
+                with profile_region("el.ldl.front.split"):
+                    _shard_level(fronts, ns, max_ns, pf, grid, tree_axis,
+                                 kernel)
+            else:
+                kind = _front_kind(spd, max_ns, panel_blocksize)
+                with profile_region("el.ldl.front." + kind):
+                    kernel(fronts, ns, max_ns, pf)
+            d[lev.diag_cols] = pool[lev.diag_dst]
     return LDLFactorization(symb, pool, d, conjugate)

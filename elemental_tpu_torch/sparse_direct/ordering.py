@@ -12,6 +12,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..core.profiling import profiled
 from ..sparse.csr import Graph, SparseMatrix
 
 
@@ -121,6 +122,7 @@ def bisect(adj: List[np.ndarray], nodes: np.ndarray
             np.array(sep, np.int64))
 
 
+@profiled("el.ordering.nested_dissection")
 def nested_dissection(A, cutoff: int = 64) -> np.ndarray:
     """Recursive nested dissection (reference ``NestedDissection.cpp:79``):
     bisect until subgraphs are below ``cutoff``, order leaves by minimum

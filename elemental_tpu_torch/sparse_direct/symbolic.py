@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.policy import index_dtype
+from ..core.profiling import profiled
 from ..sparse.csr import SparseMatrix
 
 
@@ -338,6 +339,7 @@ def from_reference(obj, A: Optional[SparseMatrix] = None
                                  i64(obj.a_perm_src), int(obj.nnz_factor))
 
 
+@profiled("el.symbolic.analyze")
 def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
             relax: int = 8, pad_to: int = 8,
             size_bucket: float = 0.0) -> SymbolicFactorization:
