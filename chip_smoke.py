@@ -24,7 +24,8 @@ Phases, each printing at least one line and each fatal when it fails:
    checked against one made with the plain extend-add and timed with and
    without ``KKTSystem.prepare``'s zero-pivot check; its seconds per
    iteration are the run's time less that of a ``max_iters=0`` run, which
-   returns the starting point;
+   returns the starting point; K1's and K8's launches in the run are
+   counted (K8: one a blocked panel of every factor);
 6. K3: ``plan_spmv`` of the 1024² 2-D Laplacian/8 and the 128³ 3-D
    Laplacian on the card (kind 'stencil'), one ``SpMVPlan.matvec`` each in
    float32 and float64 held against the plain version and scipy, and the
@@ -233,6 +234,19 @@ Phases, each printing at least one line and each fatal when it fails:
     busy share); then ``entry.dryrun_multichip(4)`` at its
     default 32³ with the weak-scaling table over 1, 2 and 4 positions
     (one card, repeated positions: bytes, no speed-up).
+25. K8 ``ldl_panel`` (``csrc/front_panel.cu``), the blocked LDLᵀ front
+    factor's panel kernel: the 48³ Laplacian's float64 LDLᵀ through
+    ``SparseLDLFactorization(spd=False)`` (phase 24's ordering), one K8
+    launch a blocked panel of its plan and a solve within the residual
+    bound; then at the largest blocked level of the LP's KKT plan (phase
+    3's, float32) and of the 48³ plan (float64): the first panel of every
+    front of the level on a random indefinite batch, bit-equal to the
+    plain panel loop with its scratch panels, then its time (CUDA events,
+    50 launches) beside the bound (the panel read and written and both
+    scratch panels written, at 3.35 TB/s) and beside the plain loop's,
+    and the whole level's blocked factor
+    (``numeric._masked_partial_ldl_blocked``) through K8 and through the
+    plain loop, bit-equal, each on the host clock.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -321,8 +335,9 @@ def phase_build():
     """nvcc for every kernel of the port, one process per source, all
     started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from elemental_tpu_torch.kernels import (elementwise, extend_add, matmul,
-                                             spmv, unstructured)
+    from elemental_tpu_torch.kernels import (elementwise, extend_add,
+                                             front_panel, matmul, spmv,
+                                             unstructured)
 
     def timed(build):
         t0 = time.perf_counter()
@@ -334,7 +349,8 @@ def phase_build():
               ("stream gather + K7 combine", unstructured.build_bridged),
               ("K4 simt + K5 simt", matmul.build),
               ("K4 wgmma + dmma + ffma, K5 ffma + dmma", matmul.build_sm90),
-              ("K6 elementwise", elementwise.build))
+              ("K6 elementwise", elementwise.build),
+              ("K8 ldl_panel", front_panel.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [(name, pool.submit(timed, build)) for name, build in builds]
@@ -492,6 +508,7 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     import torch
     from elemental_tpu_torch.kernels.extend_add import (extend_add,
                                                         extend_add_plain)
+    from elemental_tpu_torch.kernels.front_panel import ldl_panel
     from elemental_tpu_torch.optimization import LPCtrl, lp_direct
     from elemental_tpu_torch.optimization.lp import (_resolve_numerics,
                                                      _resolve_refine,
@@ -549,6 +566,7 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     del fk, ctx
 
     levels_with_children = len(kkt.ea_plan.levels)
+    panels = blocked_panels(kkt.symb)
     ordering = kkt.symb.perm.cpu().numpy()
     A_sp = A.to_scipy()
 
@@ -566,8 +584,10 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     start, t_start = solve(0)
     torch.cuda.reset_peak_memory_stats()
     extend_add.launches = 0
+    ldl_panel.launches = 0
     res, t_lp = solve(max_iters)
     launches = extend_add.launches
+    k8_launches = ldl_panel.launches
     factors = 1 + res.iterations
     for x in (res.x, res.y, res.z):
         check(np.all(np.isfinite(x)), "non-finite iterate")
@@ -578,15 +598,24 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     check(launches >= factors * levels_with_children,
           f"K1 launched {launches} times, expected at least "
           f"{factors} factors x {levels_with_children} levels")
+    # one K8 launch a blocked panel of every factor; a zero pivot retakes
+    # the whole factor with floors
+    check(panels > 0 and k8_launches % panels == 0
+          and k8_launches >= factors * panels,
+          f"K8 launched {k8_launches} times, expected a multiple of the "
+          f"plan's {panels} blocked panels, at least {factors} factors' "
+          f"worth")
     print(f"[5 LP] lp_direct concat_fd_2d m={m} n={n} f32: {res.iterations} "
           f"iterations in {t_lp:.2f} s; a max_iters=0 run (analysis and "
           f"starting point) took {t_start:.2f} s, so "
           f"{(t_lp - t_start) / res.iterations:.3f} s/iteration; relative "
           f"primal residual {r0:.3e} -> {r1:.3e}; metric {res.metric:.3e}, "
           f"converged={res.converged}; K1 launches {launches} = {factors} "
-          f"factors x {levels_with_children} levels; peak device memory "
+          f"factors x {levels_with_children} levels; K8 launches "
+          f"{k8_launches} = {k8_launches // panels} factors x {panels} "
+          f"blocked panels; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, k8_launches
 
 
 def time_pair(kernel, plain, reps: int = 100, queued: bool = True):
@@ -4508,6 +4537,145 @@ def phase_dist_ldl(seed: int, order: dict) -> int:
     return launches
 
 
+def random_level(ns, S: int, dtype, seed: int):
+    """A random indefinite batch of fronts on the card for a level of
+    ``len(ns)`` fronts of order S: normal entries, the diagonal ±2√S."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nf = len(ns)
+    F = torch.randn(nf, S, S, generator=g, device="cuda", dtype=dtype)
+    sign = torch.where(torch.rand(nf, S, generator=g, device="cuda") < 0.5,
+                       -1.0, 1.0).to(dtype)
+    F.diagonal(dim1=1, dim2=2).add_(sign * 2 * math.sqrt(S))
+    return F
+
+
+def blocked_panels(symb) -> int:
+    """K8 launches a factor of the plan ``symb`` takes: one a panel of NB
+    columns of every level the blocked front kind takes."""
+    from elemental_tpu_torch.kernels.front_panel import NB
+    return sum(-(-n // NB) for n in (int(lev.ns.max())
+                                     for lev in symb.levels) if n > NB)
+
+
+def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
+    """25: K8 at the largest blocked level of the LP's KKT plan (float32)
+    and of the 48³ Laplacian's (float64), against the plain panel loop;
+    see the module docstring.  Without the plans (alone:
+    ``c.phase_card(); c.phase_front_panel(0)``) it makes them (~1 min of
+    host analysis)."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.front_panel import (NB, ldl_panel,
+                                                         ldl_panel_plain)
+    from elemental_tpu_torch.matrices import (concat_fd_2d,
+                                              sparse_laplacian_3d)
+    from elemental_tpu_torch.optimization.lp import (_build_lp_kkt,
+                                                     sparse_ruiz)
+    from elemental_tpu_torch.sparse_direct import (SparseLDLFactorization,
+                                                   nested_dissection, numeric)
+    tag = "25 K8"
+    t_phase = time.perf_counter()
+    if lp_symb is None:
+        lp_symb = _build_lp_kkt(sparse_ruiz(concat_fd_2d(224, 224))[0],
+                                1e-2, 1e-2, None, device="cpu",
+                                dtype=torch.float32)[0].symb
+    A = sparse_laplacian_3d(48, 48, 48, scaled=False)
+    if lap_perm is None:
+        lap_perm = nested_dissection(A, cutoff=64)
+    # the 48³ LDLᵀ factor on the card through the facade: one K8 launch a
+    # blocked panel of its plan, and a solve within the residual bound
+    lap = SparseLDLFactorization(device="cuda", dtype=torch.float64,
+                                 spd=False).initialize(A, perm=lap_perm)
+    lap_symb = lap.symb
+    lap.factor()                                    # warm
+    before = ldl_panel.launches
+    _, t_lap = wall(lap.factor)
+    lap_launches = ldl_panel.launches - before
+    lap_panels = blocked_panels(lap_symb)
+    check(lap_launches == lap_panels,
+          f"K8 {lap_launches} launches in a 48^3 factor, the plan has "
+          f"{lap_panels} blocked panels")
+    rhs = np.random.default_rng(seed).standard_normal(A.height)
+    x = lap.solve(rhs).cpu().numpy()
+    res = float(np.linalg.norm(A.to_scipy() @ x - rhs) / np.linalg.norm(rhs))
+    check(np.isfinite(res) and res < lap.residual_bound(),
+          f"48^3 LDL residual {res:.3e} >= bound {lap.residual_bound():.3e}")
+    print(f"[{tag}] 48^3 Laplacian float64 LDL through the facade: factor "
+          f"{t_lap:.4f} s, K8 launches {lap_launches} = the plan's blocked "
+          f"panels, residual {res:.3e} < {lap.residual_bound():.3e}")
+    del lap, x
+    torch.cuda.empty_cache()
+    before = ldl_panel.launches
+    out = {}
+    for case, symb, dtype in (("lp224", lp_symb, torch.float32),
+                              ("lap48", lap_symb, torch.float64)):
+        blocked = [lev for lev in symb.levels if int(lev.ns.max()) > NB]
+        panels = blocked_panels(symb)
+        lev = max(blocked, key=lambda lv: lv.sn_ids.shape[0]
+                  * lv.front_size)
+        nf, S = lev.sn_ids.shape[0], lev.front_size
+        ns_host = [int(v) for v in lev.ns]
+        ns = torch.tensor(ns_host, dtype=torch.int64, device="cuda")
+        F0 = random_level(ns_host, S, dtype, seed)
+        scratch = [torch.empty(nf, S, NB, dtype=dtype, device="cuda")
+                   for _ in range(4)]
+        a, b = F0.clone(), F0.clone()
+        ldl_panel(a, ns, 0, NB, False, None, *scratch[:2])
+        ldl_panel_plain(b, ns, 0, NB, False, None, *scratch[2:])
+        torch.cuda.synchronize()
+        check(torch.equal(a, b) and torch.equal(scratch[0], scratch[2])
+              and torch.equal(scratch[1], scratch[3]),
+              f"K8 {case}: the kernel's panel differs from the plain loop's")
+        ms = cuda_ms(lambda: ldl_panel(a, ns, 0, NB, False, None,
+                                       *scratch[:2]), 50)
+        plain_ms = cuda_ms(lambda: ldl_panel_plain(b, ns, 0, NB, False,
+                                                   None, *scratch[2:]), 5)
+        item = F0.element_size()
+        nbytes = 4 * nf * S * NB * item
+        b_ms, b_by = bound(nbytes)
+        # the whole level's blocked factor through K8 and the plain loop:
+        # bit-equal, then each timed as the lesser of two runs (the first
+        # loads cuBLAS's kernels)
+        max_ns = max(ns_host)
+
+        def level():
+            return wall(lambda: numeric._masked_partial_ldl_blocked(
+                F0.clone(), ns, max_ns, False))
+
+        f_k8, t_k8 = level()
+        t_k8 = min(t_k8, level()[1])
+        saved = numeric.ldl_panel
+        numeric.ldl_panel = (
+            lambda F, ns_, j0, w, c, pf, lp=None, ld=None, arrivals=None:
+            ldl_panel_plain(F, ns_, j0, w, c, pf, lp, ld))
+        try:
+            f_plain, t_plain = level()
+            t_plain = min(t_plain, level()[1])
+        finally:
+            numeric.ldl_panel = saved
+        check(torch.equal(f_k8, f_plain),
+              f"K8 {case}: the level's blocked factor differs from the "
+              f"plain loop's")
+        del f_k8, f_plain
+        out[case] = dict(ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by))
+        print(f"[{tag}] {case} {str(dtype)[6:]}: {len(blocked)} blocked "
+              f"levels, {panels} panels a factor; largest level nf={nf}, "
+              f"S={S}, max ns={max_ns}: first panel bit-equal to the plain "
+              f"loop; kernel {ms:.4f} ms, plain loop {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.1f}x), bound {b_ms * 1e3:.2f} us ({b_by}, "
+              f"{nbytes / 1e6:.1f} MB), kernel at {b_ms / ms:.3f} of it; "
+              f"the level's blocked factor bit-equal to the plain loop's, "
+              f"{t_k8:.4f} s through K8, {t_plain:.4f} s through the plain "
+              f"loop")
+        del F0, a, b, scratch
+        torch.cuda.empty_cache()
+    print(f"[{tag}] {ldl_panel.launches - before} K8 launches in the "
+          f"kernel and level timings; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(cases=out, lap48_launches=lap_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n1", type=int, default=224,
@@ -4531,7 +4699,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-24 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-25 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -4560,7 +4728,9 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     orders = wait_analyses()
     k1 = phase_k1(kkt.ea_plan, args.seed)
     phase_ldl()
-    launches = phase_lp(A, b, c, kkt, args.max_iters)
+    launches, k8_lp = phase_lp(A, b, c, kkt, args.max_iters)
+    k8 = phase_front_panel(args.seed, kkt.symb, orders["lap48"]["perm"])
+    k8_launches = {"lp224": k8_lp, "lap48": k8["lap48_launches"]}
     del kkt
     torch.cuda.empty_cache()
 
@@ -4607,7 +4777,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     print(f"[24 dist LDL] the phase took {time.perf_counter() - t0:.1f} s "
           f"(its symbolic analysis included)")
 
-    print(f"[1-24] every phase, the kernels' build included, took "
+    print(f"[1-25] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",
@@ -4661,7 +4831,13 @@ def run_phases(args, tmp: str, t_start: float) -> int:
               ("masked_rank_k_update_simt", "simt", "matmul.cu"))),
         *(entry(op, "elementwise.cu", f"elementwise.py:{line}",
                 k6_launches[op], k6[op], library_ms=k6[op]["plain_ms"])
-          for op, line in ew_lines.items())]}))
+          for op, line in ew_lines.items()),
+        *({"name": f"ldl_panel_{case}", "route": "cuda",
+           "source": "elemental_tpu_torch/csrc/front_panel.cu",
+           "replaces": None, "launches": k8_launches[case],
+           "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+           "library_ms": None} for case, r in k8["cases"].items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

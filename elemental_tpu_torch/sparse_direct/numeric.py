@@ -40,6 +40,7 @@ import torch
 
 from ..core.profiling import profile_region, profiled
 from ..kernels.extend_add import extend_add
+from ..kernels.front_panel import _clamp_pivot, ldl_panel
 from ..utils import transfers
 from .ea_plan import EAPlan
 from .symbolic import SymbolicFactorization
@@ -57,16 +58,6 @@ def full_fp32_matmul():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
-
-
-def _clamp_pivot(dk, s):
-    """Dynamic pivot regularization (reference ``RegularizedLDL``): where a
-    signed floor s ≠ 0 is given, boost a too-small pivot's MAGNITUDE to |s|,
-    keeping the pivot's own sign (an exactly-zero pivot takes s's sign).
-    On complex pivots the sign is z/|z|, as ``jnp.sign`` takes it."""
-    mag = torch.abs(s)
-    keep = torch.where(dk == 0, torch.sgn(s), torch.sgn(dk))
-    return torch.where((s != 0) & (torch.abs(dk) < mag), keep * mag, dk)
 
 
 def _masked_partial_ldl(F, ns, max_ns: int, conjugate: bool, pf=None):
@@ -99,54 +90,26 @@ def _masked_partial_ldl(F, ns, max_ns: int, conjugate: bool, pf=None):
 def _masked_partial_ldl_blocked(F, ns, max_ns: int, conjugate: bool,
                                 nb: int = 32, pf=None):
     """Blocked right-looking variant of :func:`_masked_partial_ldl`
-    (reference ``ProcessFront.hpp:29-60``): per nb-column panel, rank-1
-    eliminations inside the S×nb panel, then the trailing rank-nb update as
-    one batched matmul.  Same update domain as the rank-1 version."""
+    (reference ``ProcessFront.hpp:29-60``): per nb-column panel, the
+    panel's eliminations for every front in one call of
+    ``kernels.front_panel.ldl_panel`` (K8 on the card), then the trailing
+    rank-nb update U = (Lp·dp)·Lpᵀ (Lpᴴ) on columns ≥ j1, rows ≥ j0, as
+    one batched matmul.  Same update domain as the rank-1 version; the
+    ragged last panel is a narrower one."""
     nf, S, _ = F.shape
     nb = max(1, min(nb, max_ns))
-    npan = -(-max_ns // nb)
-    Sp = max(S, npan * nb)
-    Fw = F
-    if Sp != S:
-        Fw = torch.nn.functional.pad(F, (0, Sp - S, 0, Sp - S))
-        if pf is not None:
-            pf = torch.nn.functional.pad(pf, (0, Sp - S))
-    idx = torch.arange(Sp, device=F.device)
-    tpan = torch.arange(nb, device=F.device)
-    zero = torch.zeros((), dtype=F.dtype, device=F.device)
-    for p in range(npan):
-        j0, j1 = p * nb, (p + 1) * nb
-        Fp = Fw[:, :, j0:j1].clone()
-        for kk in range(nb):
-            k = j0 + kk
-            elim = ns > k
-            dk = Fp[:, k, kk].clone()
-            if pf is not None:
-                dk = torch.where(elim, _clamp_pivot(dk, pf[:, k]), dk)
-            safe = torch.where(dk == 0, torch.ones_like(dk), dk)
-            below = (idx > k)[None, :] & elim[:, None]
-            col = torch.where(below, Fp[:, :, kk] / safe[:, None], zero)
-            # within-panel update: rows > k, panel columns > kk
-            row = col[:, k + 1:j1]
-            if conjugate:
-                row = row.conj()
-            Fp[:, k + 1:, kk + 1:] -= col[:, k + 1:, None] \
-                * row[:, None, :] * dk[:, None, None]
-            Fp[:, :, kk] = torch.where(below, col, Fp[:, :, kk])
-            Fp[:, k, kk] = dk
-        Fw[:, :, j0:j1] = Fp
-        if j1 < Sp:
-            # trailing rank-nb update U = (Lp·dp)·Lpᵀ (Lpᴴ) on columns ≥ j1
-            prow = j0 + tpan
-            dp = Fp[:, prow, tpan]
-            # non-eliminated panel columns (pivot ≥ ns) hold Schur data
-            keep = ((idx[:, None] > prow[None, :])[None]
-                    & (prow[None, None, :] < ns[:, None, None]))
-            Lp = torch.where(keep, Fp, zero)
-            Lt = Lp[:, j1:, :].mH if conjugate else Lp[:, j1:, :].mT
-            Fw[:, :, j1:] -= torch.matmul(Lp * dp[:, None, :], Lt)
-    if Sp != S:
-        F.copy_(Fw[:, :S, :S])
+    arrivals = torch.zeros(nf, dtype=torch.int32, device=F.device)
+    for j0 in range(0, max_ns, nb):
+        j1 = min(j0 + nb, S)
+        if j1 == S:
+            ldl_panel(F, ns, j0, S - j0, conjugate, pf, arrivals=arrivals)
+            break
+        # the masked panel and Lp·dp, rows ≥ j0 (K8 writes them)
+        Lp = F.new_empty(nf, S - j0, nb)
+        LD = torch.empty_like(Lp)
+        ldl_panel(F, ns, j0, nb, conjugate, pf, Lp, LD, arrivals)
+        Lt = Lp[:, nb:, :]
+        F[:, j0:, j1:] -= torch.matmul(LD, Lt.mH if conjugate else Lt.mT)
     return F
 
 
