@@ -231,9 +231,17 @@ Phases, each printing at least one line and each fatal when it fails:
     the solve residual under ``residual_bound()``, in float32 the refined
     solve under 1e-5, peak GiB, and in float64 one grid and one
     one-device factor under ``torch.profiler`` (kernels launched, device
-    busy share); then ``entry.dryrun_multichip(4)`` at its
-    default 32³ with the weak-scaling table over 1, 2 and 4 positions
-    (one card, repeated positions: bytes, no speed-up).
+    busy share).  Where four cards are visible, the same plan's float64
+    LDLᵀ (``spd=False``) on a 2×2 grid of four cards, one position a card:
+    best of 3 with the first factor's time, K1 once a level with an
+    extend-add, K8's launches, the bytes copied between the cards
+    (``transfers.peer_bytes``) equal to the tiers' formula, the lower
+    triangles and d within 1e-10 of max|pool| of the one-card factor's,
+    the solve residual under ``residual_bound()`` and each card's peak
+    GiB.  Then ``entry.dryrun_multichip(4)`` on the card at its default
+    32³ with the weak-scaling table over 1, 2 and 4 positions (one card,
+    repeated positions: bytes, no speed-up), and where four cards are
+    visible once more on its default devices, one position a card.
 25. K8 ``ldl_panel`` (``csrc/front_panel.cu``), the blocked LDLᵀ front
     factor's panel kernel: the 48³ Laplacian's float64 LDLᵀ through
     ``SparseLDLFactorization(spd=False)`` (phase 24's ordering), one K8
@@ -4392,6 +4400,117 @@ def dist_bytes(symb, grid, tiers: dict, itemsize: int) -> int:
     return total * itemsize
 
 
+def dist_peer_bytes(symb, grid, tiers: dict, itemsize: int) -> int:
+    """24: the bytes a grid factor copies between distinct cards
+    (``transfers.peer_bytes``): each distributed front's row blocks out to
+    their positions' cards and back, and per panel every card of a
+    position holding a row ≥ j0 receives the other cards' such rows of the
+    panel's min(nb, ns − j0) columns; each split level's chunks on other
+    cards than the pool's out and back, with their int64 ``ns``."""
+    from elemental_tpu_torch.sparse_direct.dist_front import (PANEL,
+                                                              padded_size)
+    devs = [grid.device(i, j) for i, j in grid.positions()]
+    P = len(devs)
+    total = 0
+    for li in tiers["dist_front"]:
+        lev = symb.levels[li]
+        Sp = padded_size(lev.front_size, PANEL, P)
+        rl = Sp // P
+        for ns in (int(n) for n in lev.ns):
+            total += 2 * sum(d != devs[0] for d in devs) * rl * Sp
+            for j0 in range(0, ns, PANEL):
+                act = range(j0 // rl, P)
+                need = {devs[q] for q in act}
+                if len(need) > 1:
+                    total += min(PANEL, ns - j0) * sum(
+                        rl - max(j0 - q * rl, 0) for d in need for q in act
+                        if devs[q] != d)
+    total *= itemsize
+    for li in tiers["split"]:
+        lev = symb.levels[li]
+        nf, S = lev.sn_ids.shape[0], lev.front_size
+        size = -(-nf // P)
+        for c in range(P):
+            k = max(0, min(size, nf - c * size))
+            if k and devs[c] != devs[0]:
+                total += 2 * k * S * S * itemsize + 8 * k
+    return total
+
+
+def dist_ldl_cards(tag: str, base, b, Ssc, gflop: float) -> None:
+    """24, where four cards are visible: the same plan's float64 LDLᵀ
+    (``spd=False``: K8 in both grid tiers) on a 2×2 grid of four cards, one
+    position a card, against the one-card factor at the phase's gate, with
+    K1's and K8's launches and the bytes copied between the cards
+    (``transfers.peer_bytes``) against ``dist_peer_bytes``."""
+    import copy
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.core import Grid
+    from elemental_tpu_torch.kernels.extend_add import extend_add
+    from elemental_tpu_torch.kernels.front_panel import ldl_panel
+    from elemental_tpu_torch.sparse_direct import SparseLDLFactorization
+    from elemental_tpu_torch.utils import transfers
+    cards = [torch.device("cuda", i) for i in range(4)]
+    grid = Grid(cards, height=2)
+
+    def synced(fn):
+        def run():
+            fn()
+            for c in cards:
+                torch.cuda.synchronize(c)
+        return run
+
+    f4 = copy.copy(base)
+    f4.grid, f4.spd, f4.dtype, f4.numeric = grid, False, torch.float64, None
+    tiers = dist_tiers(f4.symb, grid, f4.dist_front_min)
+    _, t_first = wall(synced(f4.factor))
+    k1, k8, peer = extend_add.launches, ldl_panel.launches, \
+        transfers.peer_bytes
+    t_grid = best_wall(synced(f4.factor))
+    n_k1 = (extend_add.launches - k1) // 3
+    n_k8 = (ldl_panel.launches - k8) // 3
+    got = (transfers.peer_bytes - peer) // 3
+    want = dist_peer_bytes(f4.symb, grid, tiers, 8)
+    check(got == want, f"four cards: {got} bytes copied between the cards "
+          f"a factor, the tiers' formula {want}")
+    check(n_k1 == len(base.ea_plan.levels), f"four cards: K1 launched "
+          f"{n_k1} times a factor, {len(base.ea_plan.levels)} levels with an "
+          f"extend-add")
+    peaks = [torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards]
+    f1 = SparseLDLFactorization(device=cards[0], dtype=torch.float64)
+    f1.A, f1.symb, f1.ea_plan = base.A, base.symb, base.ea_plan
+    f1.factor()
+    t_one = best_wall(f1.factor)
+    lo_g, lo_1 = lower_fronts(f4), lower_fronts(f1)
+    scale = max(float(t.abs().max()) for t in lo_1)
+    err = max(float((a - c).abs().max()) for a, c in zip(lo_g, lo_1))
+    err_d = float((f4.numeric.d - f1.numeric.d).abs().max())
+    del lo_g, lo_1, f1
+    gate = DIST_GATE["float64"]
+    check(err <= gate * scale and err_d <= gate * scale,
+          f"four cards: grid factor {err:.3e} (pool) / {err_d:.3e} (d) from "
+          f"the one-card factor, gate {gate:g}·{scale:.3e}")
+    x = f4.solve(b).cpu().double().numpy()
+    res = float(np.linalg.norm(Ssc @ x - b) / np.linalg.norm(b))
+    check(np.isfinite(res) and res < f4.residual_bound(),
+          f"four cards: solve residual {res:.3e} >= "
+          f"{f4.residual_bound():.3e}")
+    print(f"[{tag}] float64 LDLᵀ (spd=False) on a 2×2 grid of four cards, "
+          f"one position a card: factor {t_grid:.3f} s (best of 3; first "
+          f"{t_first:.3f} s) = {gflop / t_grid:.1f} GF/s, one card "
+          f"{t_one:.3f} s (four / one {t_grid / t_one:.2f}); K1 {n_k1} and "
+          f"K8 {n_k8} launches a factor; {got} bytes copied between the "
+          f"cards a factor (= the tiers' formula); pool and d {err:.3e} / "
+          f"{err_d:.3e} from the one-card factor (max|pool| {scale:.3e}, "
+          f"gate {gate:g}); solve residual {res:.3e}; peak GiB by card "
+          + ", ".join(f"{p:.2f}" for p in peaks))
+    f4.numeric = None
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+
+
 def lower_fronts(f) -> list:
     """24: each level's fronts' lower triangles (the entries the factor
     defines and the solves read; above the diagonal the LDL elimination
@@ -4521,10 +4640,12 @@ def phase_dist_ldl(seed: int, order: dict) -> int:
         print(line + "; " + k1_against_plain(first.args))
         del fg, first
         torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 4:
+        dist_ldl_cards(tag, base, b, Ssc, gflop)
     del base
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = port_entry.dryrun_multichip(4)
+    out = port_entry.dryrun_multichip(4, devices=[card] * 4)
     print(f"[{tag}] entry.dryrun_multichip(4) on the card (one card, "
           f"repeated positions; lap3d=32): {time.perf_counter() - t0:.1f} s; "
           f"factor {out['factor_s_grid']:.3f} s on the grid, "
@@ -4533,6 +4654,17 @@ def phase_dist_ldl(seed: int, order: dict) -> int:
           f"weak scaling (one card, repeated positions): " + "; ".join(
               f"{r['op']} {r['positions']}: {r['ms']:.2f} ms, "
               f"{r['bytes']} bytes" for r in out["scaling"]))
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        out = port_entry.dryrun_multichip(4)
+        print(f"[{tag}] entry.dryrun_multichip(4) on its default devices "
+              f"(four cards, one position a card; lap3d=32): "
+              f"{time.perf_counter() - t0:.1f} s; factor "
+              f"{out['factor_s_grid']:.3f} s on the grid, "
+              f"{out['factor_s_one']:.3f} s on one position; weak scaling "
+              f"(one card a position): " + "; ".join(
+                  f"{r['op']} {r['positions']}: {r['ms']:.2f} ms"
+                  for r in out["scaling"]))
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 

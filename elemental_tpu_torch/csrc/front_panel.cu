@@ -10,8 +10,11 @@
 // factor.  This kernel takes the loop's place; the trailing rank-nb update
 // stays a batched matmul (sparse_direct/numeric.py).
 //
-// What it computes, for each front f of the level (F: nf × S × S, row
-// major, lower triangle meaningful) and the panel's columns [j0, j0 + w):
+// What it computes, for each front f of the level (F: nf fronts of S rows,
+// row major with ldf values a row, lower triangle meaningful: a square
+// front has ldf = S; the distributed front's gathered panel, its rows from
+// the panel's first pivot down, has ldf = w) and the panel's columns
+// [j0, j0 + w):
 // for k = j0 .. j0 + w - 1 in turn,
 //   dk   = F[k][k], clamped by the signed floor pf[f][k] where ns[f] > k
 //          (numeric._clamp_pivot: a too-small pivot's magnitude raised to
@@ -167,8 +170,8 @@ template <typename T>
 __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
     T* __restrict__ F, const int64_t* __restrict__ ns,
     const T* __restrict__ pf, T* __restrict__ lp, T* __restrict__ ld,
-    int* __restrict__ arrivals, int64_t S, int64_t j0, int w, int conjugate,
-    int64_t tiles) {
+    int* __restrict__ arrivals, int64_t S, int64_t ldf, int64_t j0, int w,
+    int conjugate, int64_t tiles) {
   using N = Num<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last;
@@ -182,7 +185,7 @@ __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
   const int tid = threadIdx.x;
   const int64_t f = blockIdx.x / tiles;
   const int64_t t = blockIdx.x % tiles;
-  T* Ff = F + f * S * S;
+  T* Ff = F + f * S * ldf;
   const int64_t nsf = ns[f];
   const int64_t rs = S - j0;                 // scratch rows of a front
 
@@ -192,7 +195,7 @@ __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
   // for the next launch.
   for (int e = tid; e < w * w; e += rows) {
     const int r = e / w, c = e % w;
-    tile[r * LDS + c] = Ff[(j0 + r) * S + j0 + c];
+    tile[r * LDS + c] = Ff[(j0 + r) * ldf + j0 + c];
   }
   __syncthreads();
   if (tid == 0) {
@@ -233,7 +236,7 @@ __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
     for (int e = tid; e < w * w; e += rows) {
       const int r = e / w, c = e % w;
       const T v = tile[r * LDS + c];
-      Ff[(j0 + r) * S + j0 + c] = v;
+      Ff[(j0 + r) * ldf + j0 + c] = v;
       if (lp != nullptr) {
         const T l = (r > c && elim[c]) ? v : N::zero();
         const int64_t o = (f * rs + r) * w + c;
@@ -252,7 +255,7 @@ __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
   // plain loop does
   for (int e = tid; e < nr * w; e += rows) {
     const int r = e / w, c = e % w;
-    tile[r * LDS + c] = Ff[(r0 + r) * S + j0 + c];
+    tile[r * LDS + c] = Ff[(r0 + r) * ldf + j0 + c];
   }
   __syncthreads();
   if (tid < nr) {
@@ -270,7 +273,7 @@ __global__ void __launch_bounds__(MAX_ROWS) ldl_panel_kernel(
   for (int e = tid; e < nr * w; e += rows) {
     const int r = e / w, c = e % w;
     const T v = tile[r * LDS + c];
-    Ff[(r0 + r) * S + j0 + c] = v;
+    Ff[(r0 + r) * ldf + j0 + c] = v;
     if (lp != nullptr) {
       const T l = elim[c] ? v : N::zero();
       const int64_t o = (f * rs + (r0 - j0) + r) * w + c;
@@ -291,8 +294,8 @@ int sm_count() {
 
 template <typename T>
 int launch(void* F, const void* ns, const void* pf, void* lp, void* ld,
-           void* arrivals, int64_t nf, int64_t S, int64_t j0, int64_t w,
-           int64_t conjugate, void* stream) {
+           void* arrivals, int64_t nf, int64_t S, int64_t ldf, int64_t j0,
+           int64_t w, int64_t conjugate, void* stream) {
   if (nf <= 0) return 0;
   // rows below the diagonal block; R halved while the level would have
   // fewer than two blocks an SM
@@ -314,7 +317,7 @@ int launch(void* F, const void* ns, const void* pf, void* lp, void* ld,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(F), static_cast<const int64_t*>(ns),
       static_cast<const T*>(pf), static_cast<T*>(lp), static_cast<T*>(ld),
-      static_cast<int*>(arrivals), S, j0, static_cast<int>(w),
+      static_cast<int*>(arrivals), S, ldf, j0, static_cast<int>(w),
       static_cast<int>(conjugate), tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -325,10 +328,10 @@ extern "C" {
 
 #define EL_PANEL(NAME, T)                                                    \
   int NAME(void* F, const void* ns, const void* pf, void* lp, void* ld,     \
-           void* arrivals, int64_t nf, int64_t S, int64_t j0, int64_t w,     \
-           int64_t conjugate, void* stream) {                                \
-    return launch<T>(F, ns, pf, lp, ld, arrivals, nf, S, j0, w, conjugate,   \
-                     stream);                                                \
+           void* arrivals, int64_t nf, int64_t S, int64_t ldf, int64_t j0,   \
+           int64_t w, int64_t conjugate, void* stream) {                     \
+    return launch<T>(F, ns, pf, lp, ld, arrivals, nf, S, ldf, j0, w,         \
+                     conjugate, stream);                                     \
   }
 
 EL_PANEL(el_ldl_panel_f32, float)

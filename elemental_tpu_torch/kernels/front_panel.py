@@ -49,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     for name in _FN_NAMES.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -108,13 +108,13 @@ def ldl_panel_plain(F, ns, j0: int, w: int, conjugate: bool, pf=None,
 def _check(F, ns, j0: int, w: int, pf, lp, ld, arrivals) -> None:
     if F.dtype not in _FN_NAMES:
         raise TypeError(f"ldl_panel: unsupported dtype {F.dtype}")
-    if F.dim() != 3 or F.shape[1] != F.shape[2] or not F.is_contiguous():
+    if F.dim() != 3 or not F.is_contiguous():
         raise ValueError("ldl_panel: fronts must be a contiguous "
-                         "(nf, S, S) tensor")
-    nf, S, _ = F.shape
-    if not 0 <= j0 < j0 + w <= S:
+                         "(nf, S, C) tensor")
+    nf, S, C = F.shape
+    if not 0 <= j0 < j0 + w <= min(S, C):
         raise ValueError(f"ldl_panel: panel [{j0}, {j0 + w}) does not lie "
-                         f"in fronts of order {S}")
+                         f"in fronts of {S} rows and {C} columns")
     if ns.dtype != torch.int64 or ns.shape != (nf,):
         raise TypeError(f"ldl_panel: ns must be int64 of shape ({nf},)")
     parts = [("ns", ns)]
@@ -175,7 +175,9 @@ def _wide_panel(F, ns, j0: int, w: int, conjugate: bool, pf, lp, ld,
 def ldl_panel(F, ns, j0: int, w: int, conjugate: bool, pf=None, lp=None,
               ld=None, arrivals=None) -> None:
     """Eliminate columns ``[j0, j0 + w)`` of each front ``F[f]`` (nf×S×S,
-    lower) in place, as the blocked factor's column loop does: where
+    lower; or nf×S×C, S rows of C columns, as the distributed front's
+    gathered panel, whose pivot k sits on row k) in place, as the blocked
+    factor's column loop does: where
     ``ns[f] > k``, column k's pivot (clamped by the signed floor ``pf[f,
     k]``, see :func:`_clamp_pivot`) and unit-L column, and the rank-1
     update of the panel's later columns (LDLᴴ with ``conjugate``); where
@@ -206,11 +208,11 @@ def ldl_panel(F, ns, j0: int, w: int, conjugate: bool, pf=None, lp=None,
                                device=F.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = getattr(_lib(), _FN_NAMES[F.dtype])
-    nf, S, _ = F.shape
+    nf, S, C = F.shape
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
         rc = fn(F.data_ptr(), ns.data_ptr(), ptr(pf), ptr(lp), ptr(ld),
-                arrivals.data_ptr(), nf, S, j0, w, int(conjugate), stream)
+                arrivals.data_ptr(), nf, S, C, j0, w, int(conjugate), stream)
     if rc != 0:
         raise RuntimeError(f"ldl_panel: kernel launch failed with CUDA "
                            f"error {rc}")

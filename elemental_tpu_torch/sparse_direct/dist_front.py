@@ -9,18 +9,26 @@ cut into row blocks over every position of the grid (``core/grid.py``),
 in the flat order of the JAX ``_flat_index`` (row-major over the grid),
 and factored panel by panel:
 
-* every position gathers the panel's Sp×nb columns (one ``all-gather`` in
-  the transfer log, ``utils/transfers.py``);
-* the ≤ nb pivots inside the panel are eliminated once per distinct device
-  (the JAX package repeats this on every device; positions that share a
-  device would repeat the same arithmetic);
+* each position's device receives that position's row block alone (a
+  position on the front's own device works on a view of it);
+* every device that holds a row at or below the panel's first pivot
+  gathers the panel's columns of those rows (recorded as the JAX
+  schedule's ``all-gather`` of the whole panel in the transfer log,
+  ``utils/transfers.py``; the bytes that leave a device go to
+  ``transfers.peer_bytes``) and eliminates its pivots with K8
+  (``kernels.front_panel.ldl_panel``, sub-panels of 32; its plain column
+  loop on the CPU), once per distinct device: the JAX package repeats
+  this on every device;
 * each position applies the rank-nb trailing update to its OWN row block
-  with ``torch.matmul``, TF32 off, and writes the factored panel back.
+  with ``torch.matmul``, TF32 off, and writes the factored panel back;
+* the row blocks held on other devices go back into the front.
 
-The masked-elimination semantics (``ns``-column partial factorization,
-signed pivot floors) are those of the single-device kernels in
-``numeric.py``, so the pool layout and the extend-add are unchanged.  The
-column loop stops at ``ns``: the JAX loop's steps past it change nothing.
+The host never waits inside a front: every copy between cards is ordered
+on the two cards' streams.  The masked-elimination semantics (``ns``-column
+partial factorization, signed pivot floors) are those of the single-device
+kernels in ``numeric.py``, so the pool layout and the extend-add are
+unchanged.  The panel loop stops at ``ns``, and the last panel is as wide
+as the pivots left: the JAX loop's steps past ``ns`` change nothing.
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ from typing import Optional
 
 import torch
 
+from ..core.profiling import profile_region
+from ..kernels.front_panel import ldl_panel
 from ..utils import transfers
-from .numeric import _clamp_pivot, full_fp32_matmul
+from .numeric import full_fp32_matmul
 
 PANEL = 128     # the panel width nb (the JAX default)
 
@@ -41,28 +51,6 @@ def padded_size(S: int, nb: int, positions: int) -> int:
     rows split evenly into 8-aligned blocks and the panels tile it."""
     step = math.lcm(nb, 8 * positions)
     return -(-S // step) * step
-
-
-def _eliminate_panel(Pp, j0: int, ncols: int, conjugate: bool, pf) -> None:
-    """Eliminate the panel's first ``ncols`` columns (pivots j0 + kk), in
-    place on the gathered Sp×nb panel ``Pp``: unit L below each pivot, the
-    pivot on the diagonal, the rank-1 updates inside the panel."""
-    for kk in range(ncols):
-        k = j0 + kk
-        dk = Pp[k, kk]
-        if pf is not None:
-            dk = _clamp_pivot(dk, pf[k])
-        safe = torch.where(dk == 0, torch.ones_like(dk), dk)
-        col = Pp[k + 1:, kk] / safe
-        rest = Pp.shape[1] - kk - 1
-        if rest:
-            row = col[:rest]
-            if conjugate:
-                row = row.conj()
-            Pp[k + 1:, kk + 1:] -= col[:, None] * row[None, :] * dk
-        Pp[k + 1:, kk] = col
-        if pf is not None:
-            Pp[k, kk] = dk
 
 
 def dist_partial_ldl(F: torch.Tensor, ns, grid, nb: int = PANEL,
@@ -80,56 +68,65 @@ def dist_partial_ldl(F: torch.Tensor, ns, grid, nb: int = PANEL,
     ns = int(ns)
     Sp = padded_size(S, nb, P)
     rl = Sp // P
+    home = F.device
     Fp = F if Sp == S else torch.nn.functional.pad(F, (0, Sp - S, 0, Sp - S))
-    on = {F.device: Fp}
-    # one copy of the front per distinct device; each position's block is a
-    # view of its device's copy (cutting at entry: not a transfer)
-    blocks = []
-    for q, dev in enumerate(devs):
-        if dev not in on:
-            on[dev] = Fp.to(dev)
-        blocks.append(on[dev][q * rl:(q + 1) * rl])
+    blocks = [transfers.peer_copy(Fp[q * rl:(q + 1) * rl], dev)
+              for q, dev in enumerate(devs)]
+    on = list(dict.fromkeys(devs))          # the distinct devices, in order
+    # K8's block-order counters, one front: zeroed, and left zeroed
+    arrivals = {dev: torch.zeros(1, dtype=torch.int32, device=dev)
+                for dev in on}
     pfs = {}
     if pf is not None:
         pfp = pf if Sp == S else torch.nn.functional.pad(pf, (0, Sp - S))
-        pfs = {dev: pfp.to(dev) for dev in on}
-    rows = torch.arange(Sp, device=F.device)
+        pfs = {dev: transfers.peer_copy(pfp, dev) for dev in on}
     with full_fp32_matmul():
         for j0 in range(0, ns, nb):
-            j1 = j0 + nb
-            pieces = [b[:, j0:j1] for b in blocks]
-            panels = {}
-            for dev in on:
-                Pp = torch.cat([t.to(dev) for t in pieces])     # (Sp, nb)
-                _eliminate_panel(Pp, j0, min(nb, ns - j0), conjugate,
-                                 pfs.get(dev))
-                # the panel's L columns (pivots < ns), and its D
-                prow = torch.arange(j0, j1, device=dev)
-                keep = ((rows.to(dev)[:, None] > prow[None, :])
-                        & (prow[None, :] < ns))
-                Lp = torch.where(keep, Pp, torch.zeros((), dtype=Pp.dtype,
-                                                       device=dev))
-                d = Pp[j0:j1].diagonal()
-                LpT = Lp[j1:].mH if conjugate else Lp[j1:].mT
-                panels[dev] = (Pp, Lp, d, LpT)
-            for q, dev in enumerate(devs):
-                if transfers.recording:
+            if transfers.recording:
+                pieces = [b[:, j0:j0 + nb] for b in blocks]
+                for q in range(P):
                     transfers.record("all-gather", ((Sp, nb), F.dtype),
                                      [(t, r) for r, t in enumerate(pieces)],
                                      q)
-                Pp, Lp, d, LpT = panels[dev]
+            w = min(nb, ns - j0)
+            j1 = j0 + w
+            # the positions holding a row ≥ j0, and their part of the panel
+            active = range(j0 // rl, P)
+            need = list(dict.fromkeys(devs[q] for q in active))
+            with profile_region("el.ldl.dist.gather"):
+                rows = [blocks[q][max(j0 - q * rl, 0):, j0:j1]
+                        for q in active]
+                if len(need) > 1:
+                    rows = [t.contiguous() for t in rows]
+                panels = {dev: torch.cat([transfers.peer_copy(t, dev)
+                                          for t in rows]) for dev in need}
+            for dev, Pp in panels.items():
+                # rows ≥ j0 of the panel: its pivot k on row k − j0
+                lp = Pp.new_empty((1,) + Pp.shape)
+                ld = torch.empty_like(lp)
+                nsd = torch.full((1,), ns - j0, dtype=torch.int64,
+                                 device=dev)
+                ldl_panel(Pp[None], nsd, 0, w, conjugate,
+                          pfs[dev][None, j0:] if pfs else None, lp, ld,
+                          arrivals[dev])
+                panels[dev] = (Pp, lp[0], ld[0])
+            for q in active:
+                Pp, lp, ld = panels[devs[q]]
                 r0 = q * rl
                 blk = blocks[q]
+                a = max(j0 - r0, 0)
+                blk[a:, j0:j1] = Pp[r0 + a - j0:r0 + rl - j0]
                 # rows ≤ j0 of the trailing update are zero
-                lo = min(max(j0 + 1 - r0, 0), rl)
+                lo = max(j0 + 1 - r0, 0)
                 if j1 < Sp and lo < rl:
+                    Lt = lp[j1 - j0:]
                     blk[lo:, j1:] -= torch.matmul(
-                        Lp[r0 + lo:r0 + rl] * d[None, :], LpT)
-                blk[:, j0:j1] = Pp[r0:r0 + rl]
-    # the row blocks held on another device than F's go back into it
-    for q, dev in enumerate(devs):
-        if dev != F.device:
-            Fp[q * rl:(q + 1) * rl] = blocks[q].to(F.device)
+                        ld[r0 + lo - j0:r0 + rl - j0],
+                        Lt.mH if conjugate else Lt.mT)
+    with profile_region("el.ldl.dist.return"):
+        for q, dev in enumerate(devs):
+            if dev != home:
+                transfers.peer_copy_(Fp[q * rl:(q + 1) * rl], blocks[q])
     if Sp != S:
         F.copy_(Fp[:S, :S])
     return F

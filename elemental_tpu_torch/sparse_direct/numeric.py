@@ -372,26 +372,31 @@ def _shard_level(fronts, ns, max_ns: int, pf, grid, tree_axis,
     ``tree_axis`` (JAX ``_shard_level``: the batch axis sharded over that
     axis, sibling subtrees to positions; chunks of ⌈nf/c⌉ fronts, the
     uneven tiling of a ``NamedSharding``) and factor each with ``kernel``
-    on its first holder's device, in place in the pool."""
+    on its first holder's device, in place in the pool.  The chunks of
+    other devices than the pool's are copied out and launched first, so
+    the devices factor at once; then the pool's own, then the returns
+    (``transfers.peer_copy``: the host does not wait)."""
     nchunks = grid.axis_size(tree_axis)
     holders = [[] for _ in range(nchunks)]
     for q, (i, j) in enumerate(grid.positions()):
         holders[grid.chunk_index(tree_axis, i, j)].append(q)
     size = -(-fronts.shape[0] // nchunks)
     devs = [grid.device(i, j) for i, j in grid.positions()]
-    parts = []
-    for c in range(nchunks):
-        sub = fronts[c * size:(c + 1) * size]
-        parts.append(sub)
-        if not sub.shape[0]:
-            continue
+    parts = [fronts[c * size:(c + 1) * size] for c in range(nchunks)]
+    order = sorted((c for c in range(nchunks) if parts[c].shape[0]),
+                   key=lambda c: devs[holders[c][0]] == fronts.device)
+    done = []
+    for c in order:
         dev = devs[holders[c][0]]
         cut = slice(c * size, (c + 1) * size)
-        work = sub.to(dev)
-        kernel(work, ns[cut].to(dev), max_ns,
-               None if pf is None else pf[cut].to(dev))
-        if work.data_ptr() != sub.data_ptr():
-            sub.copy_(work)
+        work = transfers.peer_copy(parts[c], dev)
+        kernel(work, transfers.peer_copy(ns[cut], dev), max_ns,
+               None if pf is None else transfers.peer_copy(pf[cut], dev))
+        done.append((parts[c], work))
+    with profile_region("el.ldl.dist.return"):
+        for sub, work in done:
+            if work is not sub:
+                transfers.peer_copy_(sub, work)
     _record_replication(parts, holders, grid.size)
 
 

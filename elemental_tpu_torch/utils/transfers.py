@@ -35,6 +35,14 @@ not make where it computes on the shards.
 
 Outside :func:`count_transfers`, a hook costs one check of the module-level
 flag :data:`recording`.
+
+What the log does not say is what left a device.  The grid tiers of the
+sparse-direct factor (``sparse_direct/dist_front.py``, ``numeric.
+_shard_level``) move their blocks with :func:`peer_copy` and
+:func:`peer_copy_`, which add the bytes of every copy between two distinct
+devices to :data:`peer_bytes`, whether or not a log is open: on four
+cards that is the traffic over the links; on a grid that repeats one
+device it stays 0.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "collective-permute",
 # the port test it before they build anything
 recording = False
 _logs: List["TransferLog"] = []
+# bytes :func:`peer_copy` and :func:`peer_copy_` copied between two
+# distinct devices since the process started
+peer_bytes = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,3 +144,24 @@ def record(kind: str, out, pieces: Iterable[Tuple[torch.Tensor, object]],
     rec = Transfer(kind, shape, dtype, nbytes)
     for log in _logs:
         log.records.append(rec)
+
+
+def peer_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``: ``t`` itself where it is there already, else a
+    copy, whose bytes are added to :data:`peer_bytes`.  A copy between two
+    cards is ordered on both cards' current streams; the host does not
+    wait for it."""
+    global peer_bytes
+    if t.device == device:
+        return t
+    peer_bytes += _nbytes(t)
+    return t.to(device)
+
+
+def peer_copy_(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, its bytes added to :data:`peer_bytes` where the
+    two lie on distinct devices."""
+    global peer_bytes
+    if dst.device != src.device:
+        peer_bytes += _nbytes(src)
+    dst.copy_(src)

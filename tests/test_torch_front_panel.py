@@ -242,7 +242,9 @@ def _refusal_cases():
     return {
         "dtype": (TypeError, (F.to(torch.float16), ns, 0, NB), {}),
         "not_3d": (ValueError, (F[0], ns, 0, NB), {}),
-        "not_square": (ValueError, (F[:, :, :S - 1].contiguous(), ns, 0,
+        # a front of other than S columns is taken, as the distributed
+        # front's gathered panel, while the panel lies in its columns
+        "not_square": (ValueError, (F[:, :, :NB - 1].contiguous(), ns, 0,
                                     NB), {}),
         "not_contiguous": (ValueError, (F.transpose(1, 2), ns, 0, NB), {}),
         "panel_outside": (ValueError, (F, ns, S - 8, NB), {}),
