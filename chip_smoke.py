@@ -10,7 +10,8 @@ Phases, each printing at least one line and each fatal when it fails:
    (``csrc/stencil_spmv.cu``), the bridged tier's stream gather and K7
    (``csrc/bridged.cu``), K4's and K5's SIMT kernels (``csrc/matmul.cu``),
    K4's wgmma, dmma and ffma kernels and K5's ffma and dmma kernels
-   (``csrc/matmul_sm90.cu``) and K6 (``csrc/elementwise.cu``), one nvcc
+   (``csrc/matmul_sm90.cu``), K6 (``csrc/elementwise.cu``), K8
+   (``csrc/front_panel.cu``) and K9 (``csrc/level_scatter.cu``), one nvcc
    each for sm_90a, all started together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
    plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
@@ -255,6 +256,19 @@ Phases, each printing at least one line and each fatal when it fails:
     and the whole level's blocked factor
     (``numeric._masked_partial_ldl_blocked``) through K8 and through the
     plain loop, bit-equal, each on the host clock.
+26. K9 ``level_scatter`` (``csrc/level_scatter.cu``), the tree solve's
+    level scatter, on the LP's KKT plan (phase 3's, float32) and the 48³
+    plan (phase 25's factor, float64): on every level of each plan, random
+    values, the kernel bit-equal to the plain version run on the CPU and
+    to itself over two runs, row n untouched; the launches around one
+    refined KKT solve (FGMRES-16 with panel inverses, at a random Θ) and
+    one 48³ solve, 2 × levels a tree solve; that solve's time (host
+    clock, least of 3) through K9 and through the scatter the solve ran
+    before (``w - xf`` and ``index_add_`` over every padded slot), the
+    two results within rounding (the old atomics add in no fixed order);
+    and on level 0 of each plan the kernel, the plain
+    version on the card and that old pair (CUDA events) beside the
+    kernel's bound (its plan and values read, ``xe`` read and written).
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -344,8 +358,8 @@ def phase_build():
     started together."""
     from concurrent.futures import ThreadPoolExecutor
     from elemental_tpu_torch.kernels import (elementwise, extend_add,
-                                             front_panel, matmul, spmv,
-                                             unstructured)
+                                             front_panel, level_scatter,
+                                             matmul, spmv, unstructured)
 
     def timed(build):
         t0 = time.perf_counter()
@@ -358,7 +372,8 @@ def phase_build():
               ("K4 simt + K5 simt", matmul.build),
               ("K4 wgmma + dmma + ffma, K5 ffma + dmma", matmul.build_sm90),
               ("K6 elementwise", elementwise.build),
-              ("K8 ldl_panel", front_panel.build))
+              ("K8 ldl_panel", front_panel.build),
+              ("K9 level_scatter", level_scatter.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [(name, pool.submit(timed, build)) for name, build in builds]
@@ -4736,8 +4751,7 @@ def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
     print(f"[{tag}] 48^3 Laplacian float64 LDL through the facade: factor "
           f"{t_lap:.4f} s, K8 launches {lap_launches} = the plan's blocked "
           f"panels, residual {res:.3e} < {lap.residual_bound():.3e}")
-    del lap, x
-    torch.cuda.empty_cache()
+    del x
     before = ldl_panel.launches
     out = {}
     for case, symb, dtype in (("lp224", lp_symb, torch.float32),
@@ -4805,7 +4819,142 @@ def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
     print(f"[{tag}] {ldl_panel.launches - before} K8 launches in the "
           f"kernel and level timings; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return dict(cases=out, lap48_launches=lap_launches)
+    return dict(cases=out, lap48_launches=lap_launches, lap=lap)
+
+
+def old_scatter(symb):
+    """The level scatter the tree solve ran before K9, as a stand-in for
+    ``numeric.level_scatter``: ``w - xf`` added into every front slot of
+    the level, the padded ones (row n) included, by ``index_add_``."""
+    rows = {id(sc): lev.front_rows.reshape(-1)
+            for lev, sc in zip(symb.levels, symb.solve_plan.levels)}
+
+    def scatter(xe, w, xf, sc):
+        xe.index_add_(0, rows[id(sc)], (w - xf).reshape(-1, xe.shape[1]))
+    return scatter
+
+
+def scatter_bytes(sc, itemsize: int) -> int:
+    """K9's bytes for one level and one column: each real slot's w, xf and
+    slot id, each row's offset, row id and ``xe`` value read and
+    written."""
+    idx = sc.slots.element_size()
+    return (sc.n_slots * (2 * itemsize + idx)
+            + sc.n_rows * (2 * idx + 2 * itemsize))
+
+
+def phase_level_scatter(seed: int, kkt, lap) -> dict:
+    """26: K9 on the LP's KKT plan and the 48³ plan; see the module
+    docstring.  ``kkt``: phase 3's ``KKTSystem``; ``lap``: phase 25's
+    factored ``SparseLDLFactorization``.  Alone: ``c.phase_card();
+    c.phase_build(); k8 = c.phase_front_panel(0)`` and a ``KKTSystem`` of
+    the LP, as ``run_phases`` makes it."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.level_scatter import (
+        level_scatter, level_scatter_plain)
+    from elemental_tpu_torch.sparse_direct import numeric
+    tag = "26 K9"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case, symb, dtype in (("lp224", kkt.symb, torch.float32),
+                              ("lap48", lap.symb, torch.float64)):
+        plan = symb.solve_plan
+        n = symb.n
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        slots = real = 0
+        for i, sc in enumerate(plan.levels):
+            xe = torch.randn(n + 1, 1, generator=g, device="cuda",
+                             dtype=dtype)
+            w, xf = (torch.randn(sc.n_level_slots, 1, generator=g,
+                                 device="cuda", dtype=dtype)
+                     for _ in range(2))
+            a, b = xe.clone(), xe.clone()
+            level_scatter(a, w, xf, sc)
+            level_scatter(b, w, xf, sc)
+            ref = xe.cpu()
+            level_scatter_plain(ref, w.cpu(), xf.cpu(), sc.to("cpu"))
+            torch.cuda.synchronize()
+            check(torch.equal(a.cpu(), ref) and torch.equal(a, b),
+                  f"K9 {case} level {i}: the kernel differs from the plain "
+                  f"version or from its own second run")
+            check(bool(a[n] == xe[n]), f"K9 {case} level {i} wrote row n")
+            slots += sc.n_level_slots
+            real += sc.n_slots
+        # one whole solve: the launches, its time through K9 and through
+        # the old scatter, and the same result
+        if case == "lp224":
+            theta = torch.as_tensor(np.abs(rng.standard_normal(
+                kkt.dyn_pos[0].shape[0])) + 0.1, device="cuda",
+                dtype=dtype)
+            fact = kkt.prepare(kkt.assemble([theta]))
+            ctx = fact.solve_context()
+            rhs = torch.as_tensor(rng.standard_normal(kkt.N),
+                                  device="cuda", dtype=dtype)
+            sweeps = 16
+
+            def solve():
+                return fact.solve_refined(rhs, kkt.reg, iters=sweeps,
+                                          ctx=ctx)
+        else:
+            rhs = torch.as_tensor(rng.standard_normal(n), device="cuda",
+                                  dtype=dtype)
+            sweeps = 1
+
+            def solve():
+                return lap.solve(rhs)
+        solve()
+        before = level_scatter.launches
+        x, t_k9 = wall(solve)
+        launches = level_scatter.launches - before
+        expect = 2 * len(symb.levels) * sweeps
+        check(launches == expect,
+              f"K9 {case}: {launches} launches in one solve, expected "
+              f"2 x {len(symb.levels)} levels x {sweeps} tree solves")
+        t_k9 = min(t_k9, wall(solve)[1], wall(solve)[1])
+        saved = numeric.level_scatter
+        numeric.level_scatter = old_scatter(symb)
+        try:
+            x_old, t_old = wall(solve)
+            t_old = min(t_old, wall(solve)[1], wall(solve)[1])
+        finally:
+            numeric.level_scatter = saved
+        # the old scatter's atomics add a row's slots in no fixed order
+        diff = float(torch.linalg.norm(x - x_old) / torch.linalg.norm(x_old))
+        gate = 1e-4 if dtype == torch.float32 else 1e-10
+        check(diff < gate, f"K9 {case}: the solve is {diff:.3e} from the "
+              f"old scatter's (gate {gate:g})")
+        # level 0 alone: K9, the plain version and the old pair
+        sc, lev = plan.levels[0], symb.levels[0]
+        xe = torch.randn(n + 1, 1, generator=g, device="cuda", dtype=dtype)
+        w, xf = (torch.randn(lev.front_rows.shape + (1,), generator=g,
+                             device="cuda", dtype=dtype) for _ in range(2))
+        old = old_scatter(symb)
+        ms = cuda_ms(lambda: level_scatter(xe, w, xf, sc), 100)
+        plain_ms = cuda_ms(lambda: level_scatter_plain(xe, w, xf, sc), 100)
+        old_ms = cuda_ms(lambda: old(xe, w, xf, sc), 20)
+        nbytes = scatter_bytes(sc, xe.element_size())
+        b_ms, b_by = bound(nbytes)
+        out[case] = dict(ms=ms, plain_ms=plain_ms, old_ms=old_ms,
+                         bound=(b_ms, b_by), launches=launches,
+                         solve_ms=t_k9 * 1e3, old_solve_ms=t_old * 1e3)
+        print(f"[{tag}] {case} {str(dtype)[6:]}: {len(plan.levels)} levels, "
+              f"{slots} front slots, {real} real ({1 - real / slots:.1%} "
+              f"padded): every level bit-equal to the plain version and "
+              f"to itself, row n untouched; {launches} launches in one "
+              f"solve (2 x {len(symb.levels)} x {sweeps}); the solve "
+              f"{t_k9 * 1e3:.2f} ms through K9, {t_old * 1e3:.2f} ms through "
+              f"the old scatter, {diff:.2e} apart; level 0 "
+              f"({lev.front_rows.shape[0]} fronts x "
+              f"S={lev.front_rows.shape[1]}, {sc.n_slots} real "
+              f"slots, {sc.n_rows} rows): K9 {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, old w - xf + index_add_ "
+              f"{old_ms * 1e3:.2f} us ({old_ms / ms:.0f}x), bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB), K9 at "
+              f"{b_ms / ms:.3f} of it")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4831,7 +4980,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-25 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-26 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -4863,6 +5012,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     launches, k8_lp = phase_lp(A, b, c, kkt, args.max_iters)
     k8 = phase_front_panel(args.seed, kkt.symb, orders["lap48"]["perm"])
     k8_launches = {"lp224": k8_lp, "lap48": k8["lap48_launches"]}
+    k9 = phase_level_scatter(args.seed, kkt, k8.pop("lap"))
     del kkt
     torch.cuda.empty_cache()
 
@@ -4909,7 +5059,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     print(f"[24 dist LDL] the phase took {time.perf_counter() - t0:.1f} s "
           f"(its symbolic analysis included)")
 
-    print(f"[1-25] every phase, the kernels' build included, took "
+    print(f"[1-26] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",
@@ -4969,7 +5119,15 @@ def run_phases(args, tmp: str, t_start: float) -> int:
            "replaces": None, "launches": k8_launches[case],
            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-           "library_ms": None} for case, r in k8["cases"].items())]}))
+           "library_ms": None} for case, r in k8["cases"].items()),
+        *({"name": f"level_scatter_{case}", "route": "cuda",
+           "source": "elemental_tpu_torch/csrc/level_scatter.cu",
+           "replaces": None, "launches": r["launches"],
+           "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+           "library_ms": None, "old_pair_ms": r["old_ms"],
+           "solve_ms": r["solve_ms"], "old_solve_ms": r["old_solve_ms"]}
+          for case, r in k9.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,10 @@ complex-symmetric, LDLᵀ.
 The fronts are updated in place in the pool (views of it), which keeps the
 factor's memory at one pool.  Solves use the padded-unit trick: the partial
 factor extended with an identity trailing block makes one batched triangular
-solve per level do both the panel solve and the update accumulation.
+solve per level do both the panel solve and the update accumulation; its
+result goes back into the right-hand side through K9
+(``kernels/level_scatter.py``), which follows the symbolic plan's scatter
+plan (``solve_plan.py``) and never touches a padded front slot.
 
 Precision: the factor, the solves and the panel inverses run with TF32 off
 (:func:`full_fp32_matmul`, which covers complex64 products too), as the JAX
@@ -41,6 +44,7 @@ import torch
 from ..core.profiling import profile_region, profiled
 from ..kernels.extend_add import extend_add
 from ..kernels.front_panel import _clamp_pivot, ldl_panel
+from ..kernels.level_scatter import level_scatter
 from ..utils import transfers
 from .ea_plan import EAPlan
 from .symbolic import SymbolicFactorization
@@ -196,16 +200,17 @@ class LDLFactorization:
         if squeeze:
             x = x[:, None]
         k = x.shape[1]
-        # x extended with a dummy row absorbing padded scatter traffic
+        # x extended with a zero row that the padded front slots read
         xe = torch.cat([x[symb.perm], x.new_zeros((1, k))])
+        scatter = symb.solve_plan.levels
         for i, lev in enumerate(symb.levels):
             with profile_region("el.ldl.solve.forward"):
-                self._level_solve(xe, lev, True,
+                self._level_solve(xe, lev, scatter[i], True,
                                   None if ctx is None else ctx[i])
         xe[:n] = xe[:n] / self.d[:, None]
         for i in reversed(range(len(symb.levels))):
             with profile_region("el.ldl.solve.backward"):
-                self._level_solve(xe, symb.levels[i], False,
+                self._level_solve(xe, symb.levels[i], scatter[i], False,
                                   None if ctx is None else ctx[i])
         out = xe[:n][symb.iperm]
         return out[:, 0] if squeeze else out
@@ -231,9 +236,11 @@ class LDLFactorization:
         """The batch's transposes, conjugated for a Hermitian factor."""
         return m.mH if self.conjugate else m.mT
 
-    def _level_solve(self, xe, lev, forward: bool, linv=None) -> None:
+    def _level_solve(self, xe, lev, scatter, forward: bool,
+                     linv=None) -> None:
         """One level of the forward (or backward) tree solve, in place on
-        the extended right-hand side ``xe``."""
+        the extended right-hand side ``xe``; ``scatter``: the level's
+        :class:`~.solve_plan.ScatterLevel`, applied by K9."""
         rows = lev.front_rows                              # (nf, S)
         xf = xe[rows]                                      # (nf, S, k)
         if linv is not None:
@@ -247,8 +254,7 @@ class LDLFactorization:
             else:
                 w = torch.linalg.solve_triangular(
                     self._adjoint(lp), xf, upper=True, unitriangular=True)
-        delta = w - xf
-        xe.index_add_(0, rows.reshape(-1), delta.reshape(-1, xe.shape[1]))
+        level_scatter(xe, w.contiguous(), xf, scatter)
 
     def solve_with_iterative_refinement(self, A_apply, b, iters: int = 6):
         """x ← x + F⁻¹(b − A·x) (reference ``SolveWithIterativeRefinement``,
@@ -272,15 +278,13 @@ class LDLFactorization:
             # y = x + Σ_panels (L−I)_panel·x: panel contributions are linear
             # in the ORIGINAL x (columns are disjoint across supernodes)
             ye = xe.clone()
-            for lev in self.symb.levels:
+            for lev, scatter in zip(self.symb.levels,
+                                    self.symb.solve_plan.levels):
                 lp = self._level_panels(lev)
                 if adjoint:
                     lp = self._adjoint(lp)
-                rows = lev.front_rows
-                xf = xe[rows]
-                yf = torch.matmul(lp, xf)
-                ye.index_add_(0, rows.reshape(-1),
-                              (yf - xf).reshape(-1, xf.shape[-1]))
+                xf = xe[lev.front_rows]
+                level_scatter(ye, torch.matmul(lp, xf), xf, scatter)
             out = ye[:self.symb.n]
             return out[:, 0] if squeeze else out
 

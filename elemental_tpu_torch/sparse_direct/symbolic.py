@@ -32,6 +32,7 @@ import torch
 from ..core.policy import index_dtype
 from ..core.profiling import profiled
 from ..sparse.csr import SparseMatrix
+from .solve_plan import SolvePlan, build_solve_plan
 
 
 def etree(A: SparseMatrix) -> np.ndarray:
@@ -286,6 +287,8 @@ class SymbolicFactorization:
     pool_size: int
     a_perm_src: np.ndarray         # map pool assembly → original A.vals index
     nnz_factor: int
+    # the tree solve's scatter plan, on the plan's device; set by :meth:`to`
+    solve_plan: Optional[SolvePlan] = None
 
     @property
     def num_levels(self) -> int:
@@ -294,7 +297,9 @@ class SymbolicFactorization:
     def to(self, device) -> "SymbolicFactorization":
         """A copy whose big index arrays (and ``perm``/``iperm``) are
         tensors on ``device``: int32 while ``pool_size < 2**31 - 1``,
-        int64 otherwise."""
+        int64 otherwise; with the tree solve's scatter plan
+        (``solve_plan.build_solve_plan``), built here once for every solve
+        against every factor of the pattern."""
         idt = index_dtype(self.pool_size)
 
         def conv(a):
@@ -308,9 +313,9 @@ class SymbolicFactorization:
             lev, asm_conj=mask(lev.asm_conj),
             **{f: conv(getattr(lev, f)) for f in LEVEL_ARRAY_FIELDS})
             for lev in self.levels]
-        return dataclasses.replace(self, levels=levels,
-                                   perm=conv(self.perm),
-                                   iperm=conv(self.iperm))
+        return dataclasses.replace(
+            self, levels=levels, perm=conv(self.perm), iperm=conv(self.iperm),
+            solve_plan=build_solve_plan(self).to(device))
 
 
 def from_reference(obj, A: Optional[SparseMatrix] = None
