@@ -4373,19 +4373,16 @@ DIST_LAP = 48            # phase 24's 3-D Laplacian: DIST_LAP³ rows
 DIST_GATE = {"float32": 1e-4, "float64": 1e-10}
 
 
-def dist_tiers(symb, grid, dist_front_min: int) -> dict:
+def dist_tiers(symb, grid, dist_front_min: int, dtype) -> dict:
     """24: which levels of ``symb`` the grid's factor gives to each tier
-    (``numeric.factor``'s rules): the level indices, by tier."""
+    (``numeric.level_tier``): the level indices, by tier."""
     from elemental_tpu_torch.sparse_direct import numeric
+    key = {"dist": "dist_front", "split": "split"}
     out = {"dist_front": [], "split": [], "plain": []}
     for li, lev in enumerate(symb.levels):
-        nf, S = lev.sn_ids.shape[0], lev.front_size
-        if S >= dist_front_min and nf <= 8:
-            out["dist_front"].append(li)
-        elif nf >= grid.size and nf * S ** 3 >= numeric.SPLIT_MIN_WORK:
-            out["split"].append(li)
-        else:
-            out["plain"].append(li)
+        tier = numeric.level_tier(lev, grid=grid, spd=False, dtype=dtype,
+                                  dist_front_min=dist_front_min)
+        out[key.get(tier, "plain")].append(li)
     return out
 
 
@@ -4478,7 +4475,7 @@ def dist_ldl_cards(tag: str, base, b, Ssc, gflop: float) -> None:
 
     f4 = copy.copy(base)
     f4.grid, f4.spd, f4.dtype, f4.numeric = grid, False, torch.float64, None
-    tiers = dist_tiers(f4.symb, grid, f4.dist_front_min)
+    tiers = dist_tiers(f4.symb, grid, f4.dist_front_min, f4.dtype)
     _, t_first = wall(synced(f4.factor))
     k1, k8, peer = extend_add.launches, ldl_panel.launches, \
         transfers.peer_bytes
@@ -4564,7 +4561,7 @@ def phase_dist_ldl(seed: int, order: dict) -> int:
         DistSparseMatrix.from_sparse(A, grid), perm=order["perm"],
         size_bucket=1.5))
     symb = base.symb
-    tiers = dist_tiers(symb, grid, base.dist_front_min)
+    tiers = dist_tiers(symb, grid, base.dist_front_min, base.dtype)
     check(tiers["dist_front"] and tiers["split"],
           f"{DIST_LAP}³: a tier took no level at the default thresholds: "
           f"{ {k: len(v) for k, v in tiers.items()} }")
@@ -4699,10 +4696,9 @@ def random_level(ns, S: int, dtype, seed: int):
 
 def blocked_panels(symb) -> int:
     """K8 launches a factor of the plan ``symb`` takes: one a panel of NB
-    columns of every level the blocked front kind takes."""
+    columns of every level (the blocked LDLᵀ kernel takes them all)."""
     from elemental_tpu_torch.kernels.front_panel import NB
-    return sum(-(-n // NB) for n in (int(lev.ns.max())
-                                     for lev in symb.levels) if n > NB)
+    return sum(-(-int(lev.ns.max()) // NB) for lev in symb.levels)
 
 
 def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
@@ -4756,9 +4752,9 @@ def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
     out = {}
     for case, symb, dtype in (("lp224", lp_symb, torch.float32),
                               ("lap48", lap_symb, torch.float64)):
-        blocked = [lev for lev in symb.levels if int(lev.ns.max()) > NB]
+        wide = [lev for lev in symb.levels if int(lev.ns.max()) > NB]
         panels = blocked_panels(symb)
-        lev = max(blocked, key=lambda lv: lv.sn_ids.shape[0]
+        lev = max(wide, key=lambda lv: lv.sn_ids.shape[0]
                   * lv.front_size)
         nf, S = lev.sn_ids.shape[0], lev.front_size
         ns_host = [int(v) for v in lev.ns]
@@ -4805,8 +4801,8 @@ def phase_front_panel(seed: int, lp_symb=None, lap_perm=None) -> dict:
               f"plain loop's")
         del f_k8, f_plain
         out[case] = dict(ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by))
-        print(f"[{tag}] {case} {str(dtype)[6:]}: {len(blocked)} blocked "
-              f"levels, {panels} panels a factor; largest level nf={nf}, "
+        print(f"[{tag}] {case} {str(dtype)[6:]}: {len(wide)} levels wider "
+              f"than a panel, {panels} panels a factor; largest nf={nf}, "
               f"S={S}, max ns={max_ns}: first panel bit-equal to the plain "
               f"loop; kernel {ms:.4f} ms, plain loop {plain_ms:.4f} ms "
               f"({plain_ms / ms:.1f}x), bound {b_ms * 1e3:.2f} us ({b_by}, "

@@ -9,11 +9,13 @@ iff ``||X - A\\Y|| / (eps * n * ||Y||) <= 100``).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 __all__ = ["effective_dtype", "index_dtype", "real_working_dtype",
-           "residual_bound", "working_dtype"]
+           "residual_bound", "tf32", "working_dtype"]
 
 _WORKING = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
@@ -60,3 +62,18 @@ def index_dtype(size: int) -> np.dtype:
     """The port's one index-width rule: int32 index arrays below 2³¹
     elements, int64 above."""
     return np.dtype(np.int32 if size < 2**31 - 1 else np.int64)
+
+
+@contextlib.contextmanager
+def tf32(allow: bool):
+    """Run the block with TF32 on or off for cuBLAS and cuDNN; restore the
+    caller's setting after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

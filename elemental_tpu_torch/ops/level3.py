@@ -24,7 +24,6 @@ true float32; 'high' and 'default' allow TF32.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional, Union
 
@@ -33,6 +32,7 @@ import torch
 from ..core.dist import MC, MR
 from ..core.distmatrix import DistMatrix, as_array, grid_of, like, \
     vector_piece
+from ..core.policy import tf32
 from . import summa
 from ._blocks import diag_offset, each, tri, vec
 
@@ -53,25 +53,12 @@ def set_matmul_precision(p: str) -> None:
     _matmul_precision = p
 
 
-@contextlib.contextmanager
-def _tf32(allow: bool):
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def with_precision(fn):
     """Run an op under the library's matmul precision: TF32 off for
     'highest', on otherwise; the caller's setting is restored after."""
     @functools.wraps(fn)
     def wrapper(*a, **k):
-        with _tf32(_matmul_precision != "highest"):
+        with tf32(_matmul_precision != "highest"):
             return fn(*a, **k)
     return wrapper
 

@@ -38,10 +38,10 @@ from typing import Optional
 
 import torch
 
+from ..core.policy import tf32
 from ..core.profiling import profile_region
 from ..kernels.front_panel import ldl_panel
 from ..utils import transfers
-from .numeric import full_fp32_matmul
 
 PANEL = 128     # the panel width nb (the JAX default)
 
@@ -59,9 +59,10 @@ def dist_partial_ldl(F: torch.Tensor, ns, grid, nb: int = PANEL,
     """Right-looking panel LDL of ONE front ``F`` (S×S, lower), row-block
     cut over every position of ``grid``, in place: the first ``ns``
     columns are eliminated, unit L and D in the panel and the Schur
-    complement in the trailing block, as ``numeric._masked_partial_ldl``
-    leaves them.  ``pf``: optional (S,) signed pivot floors (see
-    ``numeric._clamp_pivot``).  Returns F."""
+    complement in the trailing block, as the one-device kernel
+    ``numeric._masked_partial_ldl_blocked`` leaves them.  ``pf``: optional
+    (S,) signed pivot floors (see ``kernels.front_panel._clamp_pivot``).
+    Returns F."""
     devs = [grid.device(i, j) for i, j in grid.positions()]
     P = len(devs)
     S = F.shape[0]
@@ -80,7 +81,7 @@ def dist_partial_ldl(F: torch.Tensor, ns, grid, nb: int = PANEL,
     if pf is not None:
         pfp = pf if Sp == S else torch.nn.functional.pad(pf, (0, Sp - S))
         pfs = {dev: transfers.peer_copy(pfp, dev) for dev in on}
-    with full_fp32_matmul():
+    with tf32(False):
         for j0 in range(0, ns, nb):
             if transfers.recording:
                 pieces = [b[:, j0:j0 + nb] for b in blocks]

@@ -32,82 +32,59 @@ Precision: the factor, the solves and the panel inverses run with TF32 off
 package pins
 ``default_matmul_precision("highest")``: low-precision products destroy the
 quasi-definite KKT factor (EXPERIMENTS §E5.3).
+
+The JAX package eliminates a level of at most ``panel_blocksize`` columns by
+a rank-1 column loop and a wider one by the blocked kernel; the port takes
+the blocked kernel (K8 panels) on every LDLᵀ level.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import functools
 
 import torch
 
+from ..core.policy import tf32
 from ..core.profiling import profile_region, profiled
 from ..kernels.extend_add import extend_add
-from ..kernels.front_panel import _clamp_pivot, ldl_panel
+from ..kernels.front_panel import NB, ldl_panel
 from ..kernels.level_scatter import level_scatter
 from ..utils import transfers
+from .dist_front import PANEL, dist_partial_ldl, padded_size
 from .ea_plan import EAPlan
 from .symbolic import SymbolicFactorization
 
-
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Run the block with TF32 off for cuBLAS and cuDNN; restore after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
-def _masked_partial_ldl(F, ns, max_ns: int, conjugate: bool, pf=None):
-    """Eliminate the first ``ns[f]`` columns of each padded front ``F[f]``
-    (nf×S×S, lower), in place: unit L in the panel, D on the diagonal, the
-    Schur complement in the trailing block (L·D·Lᴴ with ``conjugate``).
-    ``pf``: optional (nf, S) signed pivot floors (see :func:`_clamp_pivot`).
-    """
-    S = F.shape[1]
-    idx = torch.arange(S, device=F.device)
-    for k in range(max_ns):
-        elim = ns > k
-        dk = F[:, k, k].clone()
-        if pf is not None:
-            dk = torch.where(elim, _clamp_pivot(dk, pf[:, k]), dk)
-        safe = torch.where(dk == 0, torch.ones_like(dk), dk)
-        below = (idx > k)[None, :] & elim[:, None]
-        col = torch.where(below, F[:, :, k] / safe[:, None],
-                          torch.zeros((), dtype=F.dtype, device=F.device))
-        # the rank-1 update touches only (i, j) > k: col is 0 elsewhere
-        c = col[:, k + 1:]
-        row = c.conj() if conjugate else c
-        F[:, k + 1:, k + 1:] -= c[:, :, None] * row[:, None, :] \
-            * dk[:, None, None]
-        F[:, :, k] = torch.where(below, col, F[:, :, k])
-        F[:, k, k] = dk
-    return F
+# run the block with TF32 off; restore the caller's setting after
+full_fp32_matmul = functools.partial(tf32, False)
 
 
 def _masked_partial_ldl_blocked(F, ns, max_ns: int, conjugate: bool,
                                 nb: int = 32, pf=None):
-    """Blocked right-looking variant of :func:`_masked_partial_ldl`
-    (reference ``ProcessFront.hpp:29-60``): per nb-column panel, the
-    panel's eliminations for every front in one call of
-    ``kernels.front_panel.ldl_panel`` (K8 on the card), then the trailing
-    rank-nb update U = (Lp·dp)·Lpᵀ (Lpᴴ) on columns ≥ j1, rows ≥ j0, as
-    one batched matmul.  Same update domain as the rank-1 version; the
-    ragged last panel is a narrower one."""
+    """Eliminate the first ``ns[f]`` columns of each padded front ``F[f]``
+    (nf×S×S, lower), in place: unit L in the panel, D on the diagonal, the
+    Schur complement in the trailing block (L·D·Lᴴ with ``conjugate``).
+    ``pf``: optional (nf, S) signed pivot floors (see
+    ``kernels.front_panel._clamp_pivot``).
+
+    Blocked right-looking (reference ``ProcessFront.hpp:29-60``): per
+    nb-column panel, the panel's eliminations for every front in one call
+    of ``kernels.front_panel.ldl_panel`` (K8 on the card), then the
+    trailing rank-nb update U = (Lp·dp)·Lpᵀ (Lpᴴ) on columns ≥ j1, rows
+    ≥ j0, as one batched matmul.  A level of at most nb columns is one
+    panel; the ragged last panel is a narrower one.  Where the rest of the
+    front fits one panel or one K8 launch (:data:`NB` columns), the panel
+    runs to its end: the Schur complement then takes the panel's rank-1
+    updates, without the product (one launch, and on a Hermitian front a
+    diagonal that stays real, as the column loop leaves it)."""
     nf, S, _ = F.shape
     nb = max(1, min(nb, max_ns))
     arrivals = torch.zeros(nf, dtype=torch.int32, device=F.device)
     for j0 in range(0, max_ns, nb):
-        j1 = min(j0 + nb, S)
-        if j1 == S:
+        if S - j0 <= max(nb, NB):
             ldl_panel(F, ns, j0, S - j0, conjugate, pf, arrivals=arrivals)
             break
+        j1 = j0 + nb
         # the masked panel and Lp·dp, rows ≥ j0 (K8 writes them)
         Lp = F.new_empty(nf, S - j0, nb)
         LD = torch.empty_like(Lp)
@@ -294,16 +271,6 @@ class LDLFactorization:
         return (int((d > 0).sum()), int((d < 0).sum()), int((d == 0).sum()))
 
 
-def _front_kind(spd: bool, max_ns: int, panel_blocksize: int) -> str:
-    """The one-device front kernel a level (or chunk) takes: "spd" (the
-    Cholesky kernel), "blocked" (:func:`_masked_partial_ldl_blocked`,
-    above ``panel_blocksize`` eliminated columns) or "rank1"
-    (:func:`_masked_partial_ldl`)."""
-    if spd:
-        return "spd"
-    return "blocked" if max_ns > panel_blocksize else "rank1"
-
-
 # the batch split's threshold (the JAX package's, ``_shard_level``): a
 # level is split over the positions when it has at least one front a
 # position and nf·S³ reaches it
@@ -313,6 +280,27 @@ SPLIT_MIN_WORK = 2e9
 # distributed front factor (``dist_front.py``) on a grid: the JAX package's
 # accelerator value
 DIST_FRONT_MIN = 1536
+
+
+def level_tier(lev, *, grid, spd: bool, dtype, dist_front_min: int) -> str:
+    """How :func:`factor` takes the level ``lev``, which is also the suffix
+    of its ``el.ldl.front.*`` span:
+
+    * "dist": on a grid, a real level of at most 8 fronts of order ≥
+      ``dist_front_min``, front by front over every position
+      (``dist_front.dist_partial_ldl``);
+    * "split": on a grid, a level of at least ``grid.size`` fronts and
+      nf·S³ ≥ :data:`SPLIT_MIN_WORK`, cut into chunks over the positions
+      (:func:`_shard_level`), each taking the one-device kernel;
+    * otherwise the one-device kernel: "spd" (:func:`_masked_partial_spd`)
+      or "blocked" (:func:`_masked_partial_ldl_blocked`)."""
+    nf, S = lev.sn_ids.shape[0], lev.front_size
+    if grid is not None:
+        if S >= dist_front_min and nf <= 8 and not dtype.is_complex:
+            return "dist"
+        if nf >= grid.size and nf * S ** 3 >= SPLIT_MIN_WORK:
+            return "split"
+    return "spd" if spd else "blocked"
 
 
 @profiled("el.ldl.factor")
@@ -329,24 +317,21 @@ def factor(symb: SymbolicFactorization, a_vals, *, ea_plan: EAPlan, dtype,
     ``reg``: optional diagonal regularization in *original* order (the
     ``RegularizedLDL`` path).  ``spd``: the Cholesky front kernel (A must be
     positive definite).  ``pivot_floor``: optional (n,) SIGNED pivot floors
-    in original order (see :func:`_clamp_pivot`).  ``panel_blocksize``:
-    levels eliminating more columns than this use the blocked LDL kernel.
+    in original order (see ``kernels.front_panel._clamp_pivot``).
+    ``panel_blocksize``: the LDL kernel's panel width.
     ``ea_plan``: the extend-add plan of ``symb`` (``ea_plan.build_ea_plan``),
     applied through K1.
 
     ``grid``: optional ``core.Grid``; the pool stays on the plan's device
     (the grid's first position's, from the facade) and two tiers of levels
     go to the positions (reference subtree→subteam mapping,
-    ``Process.hpp:150-275``, and L2D fronts, ``numeric.hpp:29-38``):
-
-    * a real level of at most 8 fronts of order ≥ ``dist_front_min`` is
-      factored front by front by ``dist_front.dist_partial_ldl`` over every
-      position (SPD fronts too, by the LDL elimination, as in JAX);
-    * a level of at least ``grid.size`` fronts and nf·S³ ≥
-      :data:`SPLIT_MIN_WORK` is split into contiguous chunks over the
-      positions of ``tree_axis`` (an axis name or a tuple of them; default
-      ``'mc'``, the JAX mesh's first axis), each factored by the level's
-      own kernel on its position's device (:func:`_shard_level`).
+    ``Process.hpp:150-275``, and L2D fronts, ``numeric.hpp:29-38``), as
+    :func:`level_tier` chooses: a "dist" level front by front over every
+    position (SPD fronts too, by the LDL elimination, as in JAX), a
+    "split" level in contiguous chunks over the positions of ``tree_axis``
+    (an axis name or a tuple of them; default ``'mc'``, the JAX mesh's
+    first axis), each factored by the one-device kernel on its position's
+    device.
 
     Each result's return to the replicated pool is recorded in an open
     ``utils.transfers.count_transfers`` log as the ``all-gather`` the JAX
@@ -441,16 +426,13 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
             if regp is not None and lev.diag_dst.numel():
                 pool.index_add_(0, lev.diag_dst, regp[lev.diag_cols])
 
-    def kernel(fronts, ns, max_ns, pf):
-        """One level's (or chunk's) masked partial factor, in place."""
-        kind = _front_kind(spd, max_ns, panel_blocksize)
-        if kind == "spd":
+    if spd:
+        def kernel(fronts, ns, max_ns, pf):
             _masked_partial_spd(fronts, ns, max_ns, conjugate)
-        elif kind == "blocked":
+    else:
+        def kernel(fronts, ns, max_ns, pf):
             _masked_partial_ldl_blocked(fronts, ns, max_ns, conjugate,
                                         nb=panel_blocksize, pf=pf)
-        else:
-            _masked_partial_ldl(fronts, ns, max_ns, conjugate, pf=pf)
 
     if tree_axis is None:
         tree_axis = "mc"
@@ -466,12 +448,12 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
             max_ns = int(lev.ns.max())
             ns = torch.as_tensor(lev.ns).to(dev)
             pf = None if pfp is None or spd else pfp[lev.front_rows]
-            if grid is not None and S >= dist_front_min and nf <= 8 \
-                    and not dtype.is_complex:
-                from .dist_front import PANEL, dist_partial_ldl, padded_size
-                pfd = None if pfp is None else pfp[lev.front_rows]
-                rl = padded_size(S, PANEL, grid.size) // grid.size
-                with profile_region("el.ldl.front.dist"):
+            tier = level_tier(lev, grid=grid, spd=spd, dtype=dtype,
+                              dist_front_min=dist_front_min)
+            with profile_region("el.ldl.front." + tier):
+                if tier == "dist":
+                    pfd = None if pfp is None else pfp[lev.front_rows]
+                    rl = padded_size(S, PANEL, grid.size) // grid.size
                     for f in range(nf):
                         dist_partial_ldl(fronts[f], int(lev.ns[f]), grid,
                                          conjugate=conjugate,
@@ -480,14 +462,10 @@ def _factor_impl(symb, a_vals, ea_plan, dtype, reg, spd, pivot_floor,
                             [fronts[f][q * rl:(q + 1) * rl]
                              for q in range(grid.size)],
                             [[q] for q in range(grid.size)], grid.size)
-            elif grid is not None and nf >= grid.size \
-                    and nf * S ** 3 >= SPLIT_MIN_WORK:
-                with profile_region("el.ldl.front.split"):
+                elif tier == "split":
                     _shard_level(fronts, ns, max_ns, pf, grid, tree_axis,
                                  kernel)
-            else:
-                kind = _front_kind(spd, max_ns, panel_blocksize)
-                with profile_region("el.ldl.front." + kind):
+                else:
                     kernel(fronts, ns, max_ns, pf)
             d[lev.diag_cols] = pool[lev.diag_dst]
     return LDLFactorization(symb, pool, d, conjugate)

@@ -92,8 +92,9 @@ MATRICES = {
 
 # name: (matrix, ordering, hermitian, spd, panel_blocksize) — orderings
 # where the JAX package's value map is right.  The 3-D tops eliminate 36
-# columns, so they take the blocked front kernel; the Hermitian LDL takes it
-# everywhere with panels of 4
+# columns, so the JAX package takes its blocked front kernel there (the
+# port takes it on every level); the Hermitian LDL takes it everywhere with
+# panels of 4
 PARITY_CASES = {
     "helmholtz_2d_nd": ("helmholtz_2d", "nd", False, False, 32),
     "helmholtz_2d_natural_nd": ("helmholtz_2d", "natural_nd", False, False,

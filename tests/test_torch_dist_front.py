@@ -2,7 +2,7 @@
 on the CPU, float64 unless named: ``dist_front.dist_partial_ldl`` (the
 cases of ``tests/sparse_direct/test_dist_front.py``) on
 ``Grid([cpu] * 8, height=2)`` against the JAX function on the conftest's
-8-device mesh and against the port's one-front kernel, within
+8-device mesh and against the JAX package's one-device column loop, within
 1e-10·max|ref|; ``DistSparseLDLFactorization`` with the distributed front
 tier and with the batch split against the JAX factor's pool and pivots;
 a complex Hermitian factor on a grid; the transfer log's bytes; and
@@ -25,6 +25,8 @@ from elemental_tpu.sparse_direct import (
     DistSparseLDLFactorization as JaxDistLDL)
 from elemental_tpu.sparse_direct.dist_front import (
     dist_partial_ldl as jax_dist_partial_ldl)
+from elemental_tpu.sparse_direct.numeric import (
+    _masked_partial_ldl as jax_masked_partial_ldl)
 
 from elemental_tpu_torch.core import Grid
 from elemental_tpu_torch.kernels.extend_add import extend_add
@@ -66,11 +68,10 @@ def _jax_front(F, ns, pf=None):
 
 
 def _one_front(F, ns, pf=None):
-    one = torch.tensor(F)[None].clone()
-    numeric._masked_partial_ldl(one, torch.tensor([ns]), ns, False,
-                                pf=None if pf is None
-                                else torch.tensor(pf)[None])
-    return one[0].numpy()
+    """The JAX package's one-device column loop on the front."""
+    pfj = None if pf is None else jnp.asarray(pf)
+    return np.asarray(jax.jit(lambda F: jax_masked_partial_ldl(
+        F, jnp.asarray(ns), ns, False, pf=pfj))(jnp.asarray(F)))
 
 
 @pytest.mark.parametrize("S,ns", [(384, 250), (256, 256), (192, 64)])
@@ -309,8 +310,8 @@ def test_complex_hermitian_skips_dist_front(monkeypatch):
 @pytest.mark.parametrize("spd", [True, False])
 def test_factor_without_grid_is_the_level_loop(lap10, spd):
     """``factor(grid=None)`` equals, bit for bit, the one-device level
-    loop written out here: K1's plain version, the level kernel, the
-    pivots."""
+    loop written out here: K1's plain version, the kernel of the level's
+    tier, the pivots."""
     A, perm = lap10
     f = SparseLDLFactorization(device=CPU, dtype=F64, spd=spd)
     f.initialize(A, perm=perm).factor()
@@ -328,13 +329,14 @@ def test_factor_without_grid_is_the_level_loop(lap10, spd):
             fronts = pool[lev.offset:lev.offset + nf * S * S].view(nf, S, S)
             max_ns = int(lev.ns.max())
             ns = torch.as_tensor(lev.ns)
-            if spd:
+            tier = numeric.level_tier(lev, grid=None, spd=spd, dtype=F64,
+                                      dist_front_min=numeric.DIST_FRONT_MIN)
+            if tier == "spd":
                 numeric._masked_partial_spd(fronts, ns, max_ns, False)
-            elif max_ns > 32:
+            else:
+                assert tier == "blocked"
                 numeric._masked_partial_ldl_blocked(fronts, ns, max_ns,
                                                     False, nb=32)
-            else:
-                numeric._masked_partial_ldl(fronts, ns, max_ns, False)
             d[lev.diag_cols] = pool[lev.diag_dst]
     assert torch.equal(f.numeric.pool, pool)
     assert torch.equal(f.numeric.d, d)

@@ -82,14 +82,13 @@ def lap():
 
 
 def tiers(symb, grid, dist_min):
-    """The levels each grid tier takes, by ``numeric.factor``'s rule."""
+    """The levels each grid tier takes (``numeric.level_tier``)."""
     out = {"dist": [], "split": []}
     for li, lev in enumerate(symb.levels):
-        nf, S = lev.sn_ids.shape[0], lev.front_size
-        if S >= dist_min and nf <= 8:
-            out["dist"].append(li)
-        elif nf >= grid.size and nf * S ** 3 >= numeric.SPLIT_MIN_WORK:
-            out["split"].append(li)
+        tier = numeric.level_tier(lev, grid=grid, spd=False, dtype=F64,
+                                  dist_front_min=dist_min)
+        if tier in out:
+            out[tier].append(li)
     return out
 
 

@@ -62,7 +62,9 @@ def _loop_panel(Fw, ns, j0: int, nb: int, conjugate: bool, pf, idx):
 def _loop_blocked(F, ns, max_ns: int, conjugate: bool, nb: int = 32,
                   pf=None):
     """The blocked factor as it ran before K8: each panel's column loop in
-    Python over the whole batch, padded to a multiple of nb."""
+    Python over the whole batch, padded to a multiple of nb; where the rest
+    of the front fits one panel or NB columns, one panel to its end, as the
+    factor schedules it."""
     nf, S, _ = F.shape
     nb = max(1, min(nb, max_ns))
     npan = -(-max_ns // nb)
@@ -75,6 +77,9 @@ def _loop_blocked(F, ns, max_ns: int, conjugate: bool, nb: int = 32,
     idx = torch.arange(Sp, device=F.device)
     for p in range(npan):
         j0, j1 = p * nb, (p + 1) * nb
+        if S - j0 <= max(nb, NB):
+            _loop_panel(Fw, ns, j0, Sp - j0, conjugate, pf, idx)
+            break
         Lp, LD = _loop_panel(Fw, ns, j0, nb, conjugate, pf, idx)
         if j1 < Sp:
             Lt = Lp[:, j1:, :].mH if conjugate else Lp[:, j1:, :].mT
@@ -394,9 +399,8 @@ def test_blocked_factor_kernel_matches_plain(cuda, monkeypatch, case, dtype):
 
 
 def _blocked_panels(symb, nb=32):
-    """The plan's panel count over the levels the blocked kernel takes."""
-    return sum(-(-int(lev.ns.max()) // nb) for lev in symb.levels
-               if int(lev.ns.max()) > nb)
+    """The plan's panel count: the blocked kernel takes every level."""
+    return sum(-(-int(lev.ns.max()) // nb) for lev in symb.levels)
 
 
 @pytest.mark.cuda
@@ -476,9 +480,9 @@ def test_laplacian_factor_wide_panels_on_card(cuda):
     launches = 0
     for lev in fg.symb.levels:
         max_ns, S = int(lev.ns.max()), lev.front_size
-        if max_ns > nb:
-            launches += sum(-(-(min(j0 + nb, S) - j0) // NB)
-                            for j0 in range(0, max_ns, nb))
+        w = max(1, min(nb, max_ns))
+        launches += sum(-(-(min(j0 + w, S) - j0) // NB)
+                        for j0 in range(0, max_ns, w))
     before = ldl_panel.launches
     pg = run(fg).pool
     torch.cuda.synchronize()

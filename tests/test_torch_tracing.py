@@ -144,9 +144,7 @@ def expected_kind(lev, grid, spd, dist_front_min, split_min):
         return "dist"
     if grid is not None and nf >= grid.size and nf * S ** 3 >= split_min:
         return "split"
-    if spd:
-        return "spd"
-    return "blocked" if int(np.max(np.asarray(lev.ns))) > 32 else "rank1"
+    return "spd" if spd else "blocked"
 
 
 @pytest.fixture(scope="module")
@@ -190,7 +188,7 @@ def test_factor_and_solve_spans(lap8, spd, on_grid, monkeypatch):
     if on_grid:
         assert {"dist", "split"} <= set(kinds)
     else:
-        assert set(kinds) == ({"spd"} if spd else {"rank1", "blocked"})
+        assert set(kinds) == ({"spd"} if spd else {"blocked"})
 
     b = np.random.default_rng(1).standard_normal(A.height)
     _, spans = traced(lambda: f.solve(b))
