@@ -23,10 +23,14 @@ Phases, each printing at least one line and each fatal when it fails:
 5. the LP at full size: ``lp_direct`` for ``--max-iters`` iterations in
    float32 (the ordering of phase 3 reused), after the first KKT factor is
    checked against one made with the plain extend-add and timed with and
-   without ``KKTSystem.prepare``'s zero-pivot check; its seconds per
-   iteration are the run's time less that of a ``max_iters=0`` run, which
-   returns the starting point; K1's and K8's launches in the run are
-   counted (K8: one a blocked panel of every factor);
+   without ``KKTSystem.prepare``'s zero-pivot check, and its FGMRES-16
+   refined solve timed as a CUDA graph replay and issued from the host;
+   its seconds per iteration are the run's time less that of a
+   ``max_iters=0`` run, which returns the starting point; K1's and K8's
+   launches in the run are counted (K8: one a blocked panel of every
+   factor), and its refined solves: one graph captured a factor, replayed
+   by the factor's other solves (``solve_refined.captures``,
+   ``.replays``, in the JSON line);
 6. K3: ``plan_spmv`` of the 1024² 2-D Laplacian/8 and the 128³ 3-D
    Laplacian on the card (kind 'stencil'), one ``SpMVPlan.matvec`` each in
    float32 and float64 held against the plain version and scipy, and the
@@ -260,12 +264,15 @@ Phases, each printing at least one line and each fatal when it fails:
     level scatter, on the LP's KKT plan (phase 3's, float32) and the 48³
     plan (phase 25's factor, float64): on every level of each plan, random
     values, the kernel bit-equal to the plain version run on the CPU and
-    to itself over two runs, row n untouched; the launches around one
-    refined KKT solve (FGMRES-16 with panel inverses, at a random Θ) and
-    one 48³ solve, 2 × levels a tree solve; that solve's time (host
-    clock, least of 3) through K9 and through the scatter the solve ran
-    before (``w - xf`` and ``index_add_`` over every padded slot), the
-    two results within rounding (the old atomics add in no fixed order);
+    to itself over two runs, row n untouched; the launches of one
+    refined KKT solve (FGMRES-16 with panel inverses, at a random Θ),
+    counted in the call that captures its CUDA graph (a replay launches
+    from the card), and of one tree solve, 2 × levels a tree solve; a
+    tree solve's time (the KKT's with its panel inverses and the 48³
+    one; host clock, least of 3) through K9 and through the scatter the
+    solve ran before (``w - xf`` and ``index_add_`` over every padded
+    slot), the two results within rounding (the old atomics add in no
+    fixed order);
     and on level 0 of each plan the kernel, the plain
     version on the card and that old pair (CUDA events) beside the
     kernel's bound (its plan and values read, ``xe`` read and written).
@@ -533,6 +540,7 @@ def phase_lp(A, b, c, kkt, max_iters: int):
                                                         extend_add_plain)
     from elemental_tpu_torch.kernels.front_panel import ldl_panel
     from elemental_tpu_torch.optimization import LPCtrl, lp_direct
+    from elemental_tpu_torch.optimization.kkt import KKTFactor
     from elemental_tpu_torch.optimization.lp import (_resolve_numerics,
                                                      _resolve_refine,
                                                      sparse_ruiz)
@@ -576,16 +584,21 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     reg_diag = torch.cat([torch.full((n,), gamma), torch.full((m,), -gamma)]
                          ).to("cuda", f32)
     rhs = torch.cat([torch.zeros(n), torch.as_tensor(b / r)]).to("cuda", f32)
-    fk.solve_refined(rhs, reg_diag, iters=nref, ctx=ctx)   # warm
+    # the first call captures the refined solve as a CUDA graph, the
+    # second replays it; the same sweep issued from the host beside it
+    fk.solve_refined(rhs, reg_diag, iters=nref, ctx=ctx)
     _, t_sweep = wall(lambda: fk.solve_refined(rhs, reg_diag, iters=nref,
                                                ctx=ctx))
+    fk._fgmres(rhs, reg_diag, nref, ctx)                    # warm
+    _, t_eager = wall(lambda: fk._fgmres(rhs, reg_diag, nref, ctx))
     print(f"[5 LP] first KKT factor: K1 {t_factor:.3f} s, plain extend-add "
           f"{t_plain:.3f} s, pools agree to {err:.3e} (max|pool| "
           f"{scale:.3e}); prepare with its zero-pivot check "
           f"{t_pair['with']:.3f} s, without it {t_pair['without']:.3f} s "
           f"(mean of two each), the check alone "
           f"{t_check / 10 * 1e3:.3f} ms; panel inverses {t_ctx:.3f} s; "
-          f"FGMRES-{nref} sweep {t_sweep:.3f} s")
+          f"FGMRES-{nref} sweep {t_sweep * 1e3:.2f} ms as a graph replay, "
+          f"{t_eager * 1e3:.2f} ms issued from the host")
     del fk, ctx
 
     levels_with_children = len(kkt.ea_plan.levels)
@@ -608,9 +621,23 @@ def phase_lp(A, b, c, kkt, max_iters: int):
     torch.cuda.reset_peak_memory_stats()
     extend_add.launches = 0
     ldl_panel.launches = 0
-    res, t_lp = solve(max_iters)
+    graphs = KKTFactor.solve_refined
+    counts = (graphs.captures, graphs.replays)
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return graphs(*args, **kw)
+
+    KKTFactor.solve_refined = counted
+    try:
+        res, t_lp = solve(max_iters)
+    finally:
+        KKTFactor.solve_refined = graphs
     launches = extend_add.launches
     k8_launches = ldl_panel.launches
+    captures = graphs.captures - counts[0]
+    replays = graphs.replays - counts[1]
     factors = 1 + res.iterations
     for x in (res.x, res.y, res.z):
         check(np.all(np.isfinite(x)), "non-finite iterate")
@@ -628,6 +655,12 @@ def phase_lp(A, b, c, kkt, max_iters: int):
           f"K8 launched {k8_launches} times, expected a multiple of the "
           f"plan's {panels} blocked panels, at least {factors} factors' "
           f"worth")
+    # one graph a factor (the start's and each iteration's), captured by
+    # its first refined solve and replayed by the others
+    check(captures == factors and replays == calls[0] - captures,
+          f"refined-solve graphs: {captures} captures and {replays} "
+          f"replays over {calls[0]} refined solves against {factors} "
+          f"factors")
     print(f"[5 LP] lp_direct concat_fd_2d m={m} n={n} f32: {res.iterations} "
           f"iterations in {t_lp:.2f} s; a max_iters=0 run (analysis and "
           f"starting point) took {t_start:.2f} s, so "
@@ -636,9 +669,11 @@ def phase_lp(A, b, c, kkt, max_iters: int):
           f"converged={res.converged}; K1 launches {launches} = {factors} "
           f"factors x {levels_with_children} levels; K8 launches "
           f"{k8_launches} = {k8_launches // panels} factors x {panels} "
-          f"blocked panels; peak device memory "
+          f"blocked panels; {calls[0]} refined solves: {captures} graph "
+          f"captures (one a factor), {replays} replays; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, k8_launches
+    return launches, k8_launches, dict(captures=captures, replays=replays,
+                                       refined_solves=calls[0])
 
 
 def time_pair(kernel, plain, reps: int = 100, queued: bool = True):
@@ -4878,36 +4913,45 @@ def phase_level_scatter(seed: int, kkt, lap) -> dict:
             check(bool(a[n] == xe[n]), f"K9 {case} level {i} wrote row n")
             slots += sc.n_level_slots
             real += sc.n_slots
-        # one whole solve: the launches, its time through K9 and through
-        # the old scatter, and the same result
+        # the launches of one refined KKT solve (its 16 tree solves), then
+        # one tree solve's launches and its time through K9 and through the
+        # old scatter, and the same result
+        levels = len(symb.levels)
         if case == "lp224":
             theta = torch.as_tensor(np.abs(rng.standard_normal(
                 kkt.dyn_pos[0].shape[0])) + 0.1, device="cuda",
                 dtype=dtype)
             fact = kkt.prepare(kkt.assemble([theta]))
-            ctx = fact.solve_context()
             rhs = torch.as_tensor(rng.standard_normal(kkt.N),
                                   device="cuda", dtype=dtype)
-            sweeps = 16
+            fact.solve_refined(rhs, kkt.reg, iters=16,
+                               ctx=fact.solve_context())
+            # a replayed graph's launches come from the card, not the host:
+            # count the capturing call of a fresh context
+            ctx = fact.solve_context()
+            before = level_scatter.launches
+            fact.solve_refined(rhs, kkt.reg, iters=16, ctx=ctx)
+            launches = level_scatter.launches - before
+            check(launches == 2 * levels * 16,
+                  f"K9 {case}: {launches} launches in one refined solve, "
+                  f"expected 2 x {levels} levels x 16 tree solves")
 
             def solve():
-                return fact.solve_refined(rhs, kkt.reg, iters=sweeps,
-                                          ctx=ctx)
+                return fact.solve(rhs, ctx)
         else:
             rhs = torch.as_tensor(rng.standard_normal(n), device="cuda",
                                   dtype=dtype)
-            sweeps = 1
 
             def solve():
                 return lap.solve(rhs)
         solve()
         before = level_scatter.launches
         x, t_k9 = wall(solve)
-        launches = level_scatter.launches - before
-        expect = 2 * len(symb.levels) * sweeps
-        check(launches == expect,
-              f"K9 {case}: {launches} launches in one solve, expected "
-              f"2 x {len(symb.levels)} levels x {sweeps} tree solves")
+        tree = level_scatter.launches - before
+        check(tree == 2 * levels, f"K9 {case}: {tree} launches in one tree "
+              f"solve, expected 2 x {levels} levels")
+        if case != "lp224":
+            launches = tree
         t_k9 = min(t_k9, wall(solve)[1], wall(solve)[1])
         saved = numeric.level_scatter
         numeric.level_scatter = old_scatter(symb)
@@ -4939,7 +4983,7 @@ def phase_level_scatter(seed: int, kkt, lap) -> dict:
               f"{slots} front slots, {real} real ({1 - real / slots:.1%} "
               f"padded): every level bit-equal to the plain version and "
               f"to itself, row n untouched; {launches} launches in one "
-              f"solve (2 x {len(symb.levels)} x {sweeps}); the solve "
+              f"{'refined ' if case == 'lp224' else ''}solve; a tree solve "
               f"{t_k9 * 1e3:.2f} ms through K9, {t_old * 1e3:.2f} ms through "
               f"the old scatter, {diff:.2e} apart; level 0 "
               f"({lev.front_rows.shape[0]} fronts x "
@@ -5005,7 +5049,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     orders = wait_analyses()
     k1 = phase_k1(kkt.ea_plan, args.seed)
     phase_ldl()
-    launches, k8_lp = phase_lp(A, b, c, kkt, args.max_iters)
+    launches, k8_lp, solve_graphs = phase_lp(A, b, c, kkt, args.max_iters)
     k8 = phase_front_panel(args.seed, kkt.symb, orders["lap48"]["perm"])
     k8_launches = {"lp224": k8_lp, "lap48": k8["lap48_launches"]}
     k9 = phase_level_scatter(args.seed, kkt, k8.pop("lap"))
@@ -5123,7 +5167,8 @@ def run_phases(args, tmp: str, t_start: float) -> int:
            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
            "library_ms": None, "old_pair_ms": r["old_ms"],
            "solve_ms": r["solve_ms"], "old_solve_ms": r["old_solve_ms"]}
-          for case, r in k9.items())]}))
+          for case, r in k9.items())],
+        "solve_refined": solve_graphs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

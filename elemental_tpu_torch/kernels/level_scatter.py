@@ -110,7 +110,11 @@ def level_scatter(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
     k) values.  Row n is left as it is.
 
     CPU ``xe``: the plain version.  CUDA ``xe``: the K9 kernel, or an
-    exception.  ``level_scatter.launches`` counts kernel launches."""
+    exception.  ``level_scatter.launches`` counts the launches issued from
+    the host: a CUDA graph that holds K9 (the refined KKT solve's,
+    ``KKTFactor.solve_refined``) counts its launches when it is captured
+    (and in the eager solve that warms a card's capture stream), not when
+    it is replayed."""
     if xe.device.type == "cpu":
         level_scatter_plain(xe, w, xf, level)
         return

@@ -13,7 +13,7 @@ with FGMRES against the *unregularized* KKT.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -216,6 +216,9 @@ class KKTFactor:
     pool: torch.Tensor
     d: torch.Tensor
     scale: torch.Tensor             # D (equilibration)
+    # the refined solve's CUDA graph, released with the factor
+    _graph: Optional[_SolveGraph] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     # Above this size solve_refined builds the per-level panel inverses
     # when the caller gives none.  Numerics, not compile cost: below it,
@@ -252,7 +255,42 @@ class KKTFactor:
         FGMRES preconditioned with the LDL factor of the regularized K (the
         reference's refined ``SolveAfter``, upgraded from Richardson to a
         Krylov-optimal correction).  Never worse than the plain factored
-        solve, which is recovered as β·Z[0]."""
+        solve, which is recovered as β·Z[0].
+
+        On a CUDA card, with the context given by the caller, the call is
+        one fixed chain of kernels with no host wait: the first call of a
+        key (``ctx``, ``iters``, ``rhs``'s shape and dtype, ``reg_diag``'s,
+        the current stream) captures it as a CUDA graph held by the
+        factor, and later calls copy their inputs in, replay it and return
+        a copy of its answer (``solve_refined.captures``, ``.replays``
+        count them).  A call of another key captures again and replaces
+        the graph."""
+        if ctx is None:
+            return self._fgmres(rhs, reg_diag, iters, self.default_context())
+        if (rhs.device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return self._fgmres(rhs, reg_diag, iters, ctx)
+        reg = None if reg_diag is None else (reg_diag.shape, reg_diag.dtype)
+        key = (int(iters), rhs.shape, rhs.dtype, reg,
+               torch.cuda.current_stream(rhs.device))
+        g = self._graph
+        if g is not None and g.ctx is ctx and g.key == key:
+            with profile_region("el.kkt.solve_graph.replay"):
+                out = g.replay(rhs, reg_diag)
+            _SOLVE_REFINED.replays += 1
+            return out
+        self._graph = None              # the old graph's memory goes first
+        with profile_region("el.kkt.solve_graph.capture"):
+            g = self._graph = _SolveGraph(
+                lambda b, r: self._fgmres(b, r, iters, ctx), key, ctx, rhs,
+                reg_diag)
+            out = g.replay(rhs, reg_diag)
+        _SOLVE_REFINED.captures += 1
+        return out
+
+    def _fgmres(self, rhs: torch.Tensor, reg_diag: Optional[torch.Tensor],
+                iters: int, ctx) -> torch.Tensor:
+        """The refined solve's kernels, issued from the host."""
         def K0(x):
             kx = self.sys.matvec(self.vals, x)
             if reg_diag is not None:
@@ -260,9 +298,6 @@ class KKTFactor:
             return kx
 
         N = rhs.shape[0]
-        if ctx is None:
-            ctx = self.default_context()
-
         dev, dt = rhs.device, rhs.dtype
         beta = torch.linalg.norm(rhs)
         k = max(1, int(iters))
@@ -290,3 +325,71 @@ class KKTFactor:
         better = (torch.linalg.norm(rhs - K0(cand))
                   < torch.linalg.norm(rhs - K0(x0)))
         return torch.where(better, cand, x0)
+
+
+_SOLVE_REFINED = KKTFactor.solve_refined
+_SOLVE_REFINED.captures = 0     # refined solves captured as a CUDA graph
+_SOLVE_REFINED.replays = 0      # refined solves that replayed one
+
+
+class _SolveGraph:
+    """One refined solve captured as a CUDA graph: the key and context it
+    was captured for (holding the context keeps the panel inverses it reads
+    alive), the static input buffers it reads and the output it writes."""
+
+    __slots__ = ("key", "ctx", "graph", "rhs", "reg", "out")
+
+    # one capture stream a card, warmed by an eager solve before its first
+    # capture: cuBLAS's workspace for the stream, and every kernel's module,
+    # then exist before any capture
+    _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+    # the last graph captured for each replay stream, whose memory pool the
+    # next capture there shares: a graph's intermediates live only while it
+    # runs, replays on one stream never overlap, and each answer is copied
+    # out right after its replay, so a new factor's graph reuses what a
+    # dropped factor's held (a pool of its own would stay reserved after
+    # the graph is gone); kept only for its pool
+    _last: Dict["torch.cuda.Stream", "torch.cuda.CUDAGraph"] = {}
+
+    def __init__(self, fn, key, ctx, rhs: torch.Tensor,
+                 reg_diag: Optional[torch.Tensor]):
+        """Capture ``fn(rhs, reg_diag)`` on the card's capture stream into
+        a graph that shares the pool of the last graph captured for the
+        current stream.  Only the first capture on a card runs anything
+        there: ``fn`` once, eagerly, to warm the stream."""
+        self.key, self.ctx = key, ctx
+        self.rhs = rhs.clone()
+        self.reg = None if reg_diag is None else reg_diag.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        dev = rhs.device
+        current = torch.cuda.current_stream(dev)
+        stream = self._streams.get(dev)
+        with torch.cuda.device(dev):
+            last = self._last.get(current)
+            shared = {} if last is None else {"pool": last.pool()}
+            if stream is None:
+                stream = torch.cuda.Stream(dev)
+                stream.wait_stream(current)
+                with torch.cuda.stream(stream):
+                    fn(self.rhs, self.reg)
+                current.wait_stream(stream)
+                self._streams[dev] = stream
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="thread_local",
+                                         **shared)
+                try:
+                    self.out = fn(self.rhs, self.reg)
+                finally:
+                    self.graph.capture_end()
+            self._last[current] = self.graph
+
+    def replay(self, rhs: torch.Tensor,
+               reg_diag: Optional[torch.Tensor]) -> torch.Tensor:
+        """Copy the inputs in, replay on the current stream, and return a
+        copy of the answer (callers keep earlier answers)."""
+        self.rhs.copy_(rhs)
+        if reg_diag is not None:
+            self.reg.copy_(reg_diag)
+        self.graph.replay()
+        return self.out.clone()
