@@ -11,8 +11,9 @@ Phases, each printing at least one line and each fatal when it fails:
    (``csrc/bridged.cu``), K4's and K5's SIMT kernels (``csrc/matmul.cu``),
    K4's wgmma, dmma and ffma kernels and K5's ffma and dmma kernels
    (``csrc/matmul_sm90.cu``), K6 (``csrc/elementwise.cu``), K8
-   (``csrc/front_panel.cu``) and K9 (``csrc/level_scatter.cu``), one nvcc
-   each for sm_90a, all started together;
+   (``csrc/front_panel.cu``), K9 (``csrc/level_scatter.cu``) and K10
+   (``csrc/level_solve.cu``), one nvcc each for sm_90a, all started
+   together;
 3. K1 against its plain version on every level of the at-scale LP's KKT
    plan (concat_fd_2d n1×n1, analysed once here), in float32 and float64,
    two kernel runs bit-equal, with the time of one whole factor's
@@ -267,15 +268,28 @@ Phases, each printing at least one line and each fatal when it fails:
     to itself over two runs, row n untouched; the launches of one
     refined KKT solve (FGMRES-16 with panel inverses, at a random Θ),
     counted in the call that captures its CUDA graph (a replay launches
-    from the card), and of one tree solve, 2 × levels a tree solve; a
-    tree solve's time (the KKT's with its panel inverses and the 48³
-    one; host clock, least of 3) through K9 and through the scatter the
-    solve ran before (``w - xf`` and ``index_add_`` over every padded
-    slot), the two results within rounding (the old atomics add in no
-    fixed order);
+    from the card), and of one tree solve with the panel inverses, 2 ×
+    levels; that tree solve's time (the KKT's and the 48³ one's; host
+    clock, least of 3) through K9 and through the scatter the solve ran
+    before (``w - xf`` and ``index_add_`` over every padded slot), the
+    two results within rounding (the old atomics add in no fixed order);
     and on level 0 of each plan the kernel, the plain
     version on the card and that old pair (CUDA events) beside the
     kernel's bound (its plan and values read, ``xe`` read and written).
+27. K10 ``level_solve`` (``csrc/level_solve.cu``), the plain tree solve's
+    level step, on the 48³ plan (phase 25's factor, float64) and the
+    LP's KKT plan (float32, factored at a random Θ): on level 0 and on the
+    root level, both directions (forward with K9's sum of the update
+    slots), from random values, the kernel within 64 ulps of the plain
+    version run on the CPU and bit-equal to itself over two runs; its
+    time (CUDA events) beside its byte bound (the L panels, each real
+    row's value read and each solved or update value written, the plan's
+    ids, at 3.35 TB/s), the plain version's on the card and the masked
+    step it replaced (masked S×S panels, one batched triangular solve,
+    ``index_add_`` over every slot); then one whole plain solve: its K10
+    launches (two a panel on a split level, else one, a direction), the
+    same bits twice, and its time (host clock, least of 3) against the
+    masked path's, within rounding of it.
 
 Then one JSON line of kernel results (each with its bound: the bytes it
 must move at 3.35 TB/s or its operations at the dtype's peak, whichever
@@ -295,6 +309,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 sys.modules["jax"] = None       # the port must run with no JAX at all
 
@@ -366,7 +381,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from elemental_tpu_torch.kernels import (elementwise, extend_add,
                                              front_panel, level_scatter,
-                                             matmul, spmv, unstructured)
+                                             level_solve, matmul, spmv,
+                                             unstructured)
 
     def timed(build):
         t0 = time.perf_counter()
@@ -380,7 +396,8 @@ def phase_build():
               ("K4 wgmma + dmma + ffma, K5 ffma + dmma", matmul.build_sm90),
               ("K6 elementwise", elementwise.build),
               ("K8 ldl_panel", front_panel.build),
-              ("K9 level_scatter", level_scatter.build))
+              ("K9 level_scatter", level_scatter.build),
+              ("K10 level_solve", level_solve.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [(name, pool.submit(timed, build)) for name, build in builds]
@@ -4939,11 +4956,14 @@ def phase_level_scatter(seed: int, kkt, lap) -> dict:
             def solve():
                 return fact.solve(rhs, ctx)
         else:
+            # the plain solve's level steps are K10's (phase 27); the solve
+            # with the panel inverses scatters through K9 on every level
             rhs = torch.as_tensor(rng.standard_normal(n), device="cuda",
                                   dtype=dtype)
+            lap_ctx = lap.numeric.solve_context()
 
             def solve():
-                return lap.solve(rhs)
+                return lap.numeric.solve(rhs, lap_ctx)
         solve()
         before = level_scatter.launches
         x, t_k9 = wall(solve)
@@ -4984,6 +5004,7 @@ def phase_level_scatter(seed: int, kkt, lap) -> dict:
               f"padded): every level bit-equal to the plain version and "
               f"to itself, row n untouched; {launches} launches in one "
               f"{'refined ' if case == 'lp224' else ''}solve; a tree solve "
+              f"with the panel inverses "
               f"{t_k9 * 1e3:.2f} ms through K9, {t_old * 1e3:.2f} ms through "
               f"the old scatter, {diff:.2e} apart; level 0 "
               f"({lev.front_rows.shape[0]} fronts x "
@@ -4993,6 +5014,161 @@ def phase_level_scatter(seed: int, kkt, lap) -> dict:
               f"{old_ms * 1e3:.2f} us ({old_ms / ms:.0f}x), bound "
               f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB), K9 at "
               f"{b_ms / ms:.3f} of it")
+    print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def masked_level_step(num, xe, i: int, forward: bool) -> None:
+    """The plain solve's level step as it ran before K10: masked nf×S×S
+    unit-lower panels (``LDLFactorization._level_panels``), one batched
+    triangular solve over each padded S×S panel, ``w - xf`` added into
+    every slot of the level by ``index_add_``."""
+    import torch
+    lev = num.symb.levels[i]
+    lp = num._level_panels(lev)
+    rows = lev.front_rows
+    xf = xe[rows]
+    if forward:
+        w = torch.linalg.solve_triangular(lp, xf, upper=False,
+                                          unitriangular=True)
+    else:
+        w = torch.linalg.solve_triangular(num._adjoint(lp), xf, upper=True,
+                                          unitriangular=True)
+    xe.index_add_(0, rows.reshape(-1), (w - xf).reshape(-1, xe.shape[1]))
+
+
+def level_solve_bytes(lev, sub, itemsize: int, forward: bool) -> int:
+    """K10's bytes for one level step and one column: the L panels (each
+    front's ns·(ns-1)/2 + ns·(sz-ns) entries), each real row's value read
+    (and each pivot's written; forward, each update slot's -L21·w1
+    written), each real row's id and each front's ns and sz."""
+    import numpy as np
+    ns = sub.ns.cpu().numpy().astype(np.int64)
+    sz = sub.sz.cpu().numpy().astype(np.int64)
+    idx = lev.front_rows.element_size()
+    panels = int((ns * (ns - 1) // 2 + ns * (sz - ns)).sum())
+    values = int(sz.sum() + ns.sum()) + (int((sz - ns).sum()) if forward
+                                         else 0)
+    return ((panels + values) * itemsize + int(sz.sum()) * idx
+            + 2 * ns.size * idx)
+
+
+def phase_level_solve(seed: int, kkt, lap) -> dict:
+    """27: K10 on the 48³ plan (phase 25's factor, float64) and the LP's
+    KKT plan (phase 3's, float32, at a random Θ); see the module
+    docstring."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels.level_scatter import level_scatter
+    from elemental_tpu_torch.kernels.level_solve import (level_solve,
+                                                         level_solve_plain)
+    from elemental_tpu_torch.sparse_direct import numeric
+    tag = "27 K10"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    theta = torch.as_tensor(np.abs(rng.standard_normal(
+        kkt.dyn_pos[0].shape[0])) + 0.1, device="cuda", dtype=torch.float32)
+    cases = (("lap48", lap.numeric, torch.float64),
+             ("lp224", kkt.prepare(kkt.assemble([theta]))._ldl(),
+              torch.float32))
+    out = {}
+    for case, num, dtype in cases:
+        symb = num.symb
+        n, plan = symb.n, symb.solve_plan
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        gate = 64 * torch.finfo(dtype).eps
+        delta = torch.empty(plan.max_level_slots, 1, device="cuda",
+                            dtype=dtype)
+        rows = []
+        for i in (0, len(symb.levels) - 1):
+            lev, sub = symb.levels[i], plan.substitution[i]
+            host = types.SimpleNamespace(front_rows=lev.front_rows.cpu(),
+                                         offset=0, front_size=lev.front_size)
+            nf, S = lev.front_rows.shape
+            pool = num.pool[lev.offset:lev.offset + nf * S * S].cpu()
+            for forward in (True, False):
+                xe = torch.randn(n + 1, 1, generator=g, device="cuda",
+                                 dtype=dtype)
+                xe[n] = 0
+
+                def step(x, forward=forward):
+                    level_solve(x, num.pool, lev, sub, forward,
+                                num.conjugate, delta)
+                    if forward and sub.update.n_rows:
+                        level_scatter(x, delta, None, sub.update)
+                a, b = xe.clone(), xe.clone()
+                step(a)
+                step(b)
+                ref = xe.cpu()
+                hd = torch.empty(nf * S, 1, dtype=dtype)
+                level_solve_plain(ref, pool, host, sub.to("cpu"), forward,
+                                  num.conjugate, hd)
+                if forward and sub.update.n_rows:
+                    level_scatter(ref, hd, None, sub.update.to("cpu"))
+                torch.cuda.synchronize()
+                err = float((a.cpu() - ref).abs().max() / ref.abs().max())
+                check(torch.equal(a, b) and err <= gate,
+                      f"K10 {case} level {i} {'fwd' if forward else 'bwd'}: "
+                      f"{err:.2e} from the plain version (gate {gate:.1e}) "
+                      f"or not its own bits twice")
+                x = xe.clone()
+                ms = cuda_ms(lambda: step(x), 20)
+                plain_ms = cuda_ms(lambda: level_solve_plain(
+                    x, num.pool, lev, sub, forward, num.conjugate, delta), 5)
+                old_ms = cuda_ms(lambda: masked_level_step(num, x, i,
+                                                           forward), 5)
+                nbytes = level_solve_bytes(lev, sub, xe.element_size(),
+                                           forward)
+                b_ms, b_by = bound(nbytes)
+                rows.append(dict(level=i, forward=forward, nf=nf, S=S,
+                                 max_ns=sub.max_ns, launches=sub.launches,
+                                 ms=ms, plain_ms=plain_ms, old_ms=old_ms,
+                                 bound=(b_ms, b_by), err=err))
+                print(f"[{tag}] {case} {str(dtype)[6:]} level {i} "
+                      f"({nf} fronts, S={S}, max ns={sub.max_ns}, "
+                      f"{sub.launches} K10 launch(es)) "
+                      f"{'forward (K10 + K9)' if forward else 'backward'}: "
+                      f"{err:.1e} from the plain version, bits repeat; "
+                      f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                      f"the masked step {old_ms * 1e3:.1f} us "
+                      f"({old_ms / ms:.0f}x), bound {b_ms * 1e3:.2f} us "
+                      f"({b_by}, {nbytes / 1e6:.2f} MB), at "
+                      f"{b_ms / ms:.3f} of it")
+        # whole solves: launches, bits, time against the masked path
+        rhs = torch.as_tensor(rng.standard_normal(n), device="cuda",
+                              dtype=dtype)
+        num.solve(rhs)
+        before = level_solve.launches
+        x, t_k10 = wall(lambda: num.solve(rhs))
+        launches = level_solve.launches - before
+        want = 2 * sum(sub.launches for sub in plan.substitution)
+        check(launches == want, f"K10 {case}: {launches} launches in one "
+              f"solve, expected {want}")
+        check(torch.equal(x, num.solve(rhs)), f"K10 {case}: two solves "
+              f"differ")
+        t_k10 = min(t_k10, wall(lambda: num.solve(rhs))[1],
+                    wall(lambda: num.solve(rhs))[1])
+        saved = numeric.LDLFactorization._level_solve
+        numeric.LDLFactorization._level_solve = (
+            lambda self, xe, i, forward, ctx=None, delta=None:
+            masked_level_step(self, xe, i, forward))
+        try:
+            x_old, t_old = wall(lambda: num.solve(rhs))
+            t_old = min(t_old, wall(lambda: num.solve(rhs))[1])
+        finally:
+            numeric.LDLFactorization._level_solve = saved
+        diff = float(torch.linalg.norm(x - x_old) / torch.linalg.norm(x_old))
+        gate = 1e-4 if dtype == torch.float32 else 1e-10
+        check(diff < gate, f"K10 {case}: the solve is {diff:.3e} from the "
+              f"masked path's (gate {gate:g})")
+        out[case] = dict(levels=rows, launches=launches,
+                         solve_ms=t_k10 * 1e3, old_solve_ms=t_old * 1e3)
+        print(f"[{tag}] {case}: one solve {launches} K10 launches "
+              f"({len(symb.levels)} levels, "
+              f"{sum(sub.split for sub in plan.substitution)} split), "
+              f"bit-equal twice; {t_k10 * 1e3:.2f} ms through K10 against "
+              f"{t_old * 1e3:.2f} ms through the masked panels "
+              f"({t_old / t_k10:.1f}x), {diff:.2e} apart")
     print(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -5020,7 +5196,7 @@ def main() -> int:
 
 
 def run_phases(args, tmp: str, t_start: float) -> int:
-    """Phases 3-26 and the JSON lines; phase 16's files go into ``tmp``;
+    """Phases 3-27 and the JSON lines; phase 16's files go into ``tmp``;
     ``t_start``: when phase 1 began."""
     import numpy as np
     import torch
@@ -5052,8 +5228,10 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     launches, k8_lp, solve_graphs = phase_lp(A, b, c, kkt, args.max_iters)
     k8 = phase_front_panel(args.seed, kkt.symb, orders["lap48"]["perm"])
     k8_launches = {"lp224": k8_lp, "lap48": k8["lap48_launches"]}
-    k9 = phase_level_scatter(args.seed, kkt, k8.pop("lap"))
-    del kkt
+    lap = k8.pop("lap")
+    k9 = phase_level_scatter(args.seed, kkt, lap)
+    k10 = phase_level_solve(args.seed, kkt, lap)
+    del kkt, lap
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5099,7 +5277,7 @@ def run_phases(args, tmp: str, t_start: float) -> int:
     print(f"[24 dist LDL] the phase took {time.perf_counter() - t0:.1f} s "
           f"(its symbolic analysis included)")
 
-    print(f"[1-26] every phase, the kernels' build included, took "
+    print(f"[1-27] every phase, the kernels' build included, took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, r, ms="ms",
@@ -5167,7 +5345,17 @@ def run_phases(args, tmp: str, t_start: float) -> int:
            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
            "library_ms": None, "old_pair_ms": r["old_ms"],
            "solve_ms": r["solve_ms"], "old_solve_ms": r["old_solve_ms"]}
-          for case, r in k9.items())],
+          for case, r in k9.items()),
+        *({"name": f"level_solve_{case}_level{r['level']}_"
+                   f"{'fwd' if r['forward'] else 'bwd'}", "route": "cuda",
+           "source": "elemental_tpu_torch/csrc/level_solve.cu",
+           "replaces": None, "launches": k10[case]["launches"],
+           "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+           "library_ms": None, "masked_ms": r["old_ms"],
+           "solve_ms": k10[case]["solve_ms"],
+           "masked_solve_ms": k10[case]["old_solve_ms"]}
+          for case in k10 for r in k10[case]["levels"])],
         "solve_refined": solve_graphs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@
 // What it computes, per (destination row r = rows[i], column c):
 //   acc = xe[r, c];  for s in slots[off[i] : off[i+1]] (ascending):
 //   acc += w[s, c] - xf[s, c];  xe[r, c] = acc.
+// With xf null it adds w[s, c] alone: the plain solve's forward step adds
+// K10's -L21 w1 (csrc/level_solve.cu) over a plan of the update slots.
 // The plan (elemental_tpu_torch/sparse_direct/solve_plan.py) holds only the
 // real slots, as CSR segments by destination row with each segment in
 // ascending slot order, so the sum is the one a sequential index_add_ of the
@@ -57,7 +59,7 @@ struct alignas(2 * sizeof(R)) Complex {
 
 constexpr int THREADS = 256;
 
-template <typename T, typename I>
+template <typename T, typename I, bool DIFF>
 __global__ void __launch_bounds__(THREADS) level_scatter_kernel(
     T* xe, const T* __restrict__ w, const T* __restrict__ xf,
     const I* __restrict__ rows, const I* __restrict__ off,
@@ -71,7 +73,10 @@ __global__ void __launch_bounds__(THREADS) level_scatter_kernel(
   T acc = xe[dst];
   for (I s = off[i]; s < e; ++s) {
     const int64_t q = static_cast<int64_t>(slots[s]) * k + c;
-    acc += w[q] - xf[q];
+    if constexpr (DIFF)
+      acc += w[q] - xf[q];
+    else
+      acc += w[q];
   }
   xe[dst] = acc;
 }
@@ -82,11 +87,18 @@ int launch(void* xe, const void* w, const void* xf, const void* rows,
            void* stream) {
   const int64_t blocks = (n_rows * k + THREADS - 1) / THREADS;
   if (blocks <= 0) return 0;
-  level_scatter_kernel<T, I><<<static_cast<unsigned>(blocks), THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(xe), static_cast<const T*>(w),
-      static_cast<const T*>(xf), static_cast<const I*>(rows),
-      static_cast<const I*>(off), static_cast<const I*>(slots), n_rows, k);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xf)
+    level_scatter_kernel<T, I, true><<<grid, THREADS, 0, st>>>(
+        static_cast<T*>(xe), static_cast<const T*>(w),
+        static_cast<const T*>(xf), static_cast<const I*>(rows),
+        static_cast<const I*>(off), static_cast<const I*>(slots), n_rows, k);
+  else
+    level_scatter_kernel<T, I, false><<<grid, THREADS, 0, st>>>(
+        static_cast<T*>(xe), static_cast<const T*>(w), nullptr,
+        static_cast<const I*>(rows), static_cast<const I*>(off),
+        static_cast<const I*>(slots), n_rows, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
 """K9: the tree solve's level scatter ``xe[front_rows] += w - xf`` over one
 level's real front slots, as a hand-written CUDA kernel
-(``csrc/level_scatter.cu``), and its plain PyTorch version.
+(``csrc/level_scatter.cu``), and its plain PyTorch version.  Without
+``xf`` it adds ``w`` itself: the plain solve's forward step adds K10's
+``-L21·w1`` (``kernels/level_solve.py``) over a plan of the update slots.
 
 Replaces no TPU kernel: the JAX package leaves the scatter of
 ``elemental_tpu/sparse_direct/numeric.py:_level_solve`` to XLA.  The kernel
@@ -58,15 +60,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def level_scatter_plain(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
-                        level) -> None:
-    """Plain PyTorch version: ``xe.index_add_(0, dst, (w - xf)[slots])``."""
-    delta = (w - xf).reshape(-1, xe.shape[1])
+def level_scatter_plain(xe: torch.Tensor, w: torch.Tensor, xf, level) -> None:
+    """Plain PyTorch version: ``xe.index_add_(0, dst, (w - xf)[slots])``
+    (``w[slots]`` without ``xf``)."""
+    delta = (w if xf is None else w - xf).reshape(-1, xe.shape[1])
     xe.index_add_(0, level.dst, delta[level.slots])
 
 
-def _check(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
-           level) -> None:
+def on_device(device: torch.device, launch):
+    """``launch(stream)`` with ``device`` current and its current stream's
+    handle; the tree solve's kernels issue a few hundred launches a solve,
+    so the handle is read without building a ``torch.cuda.Stream`` (7 µs a
+    call on an H100's host, against 0.2 µs), and the device is switched
+    only where it is not the current one already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()))
+    with torch.cuda.device(device):
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def _check(xe: torch.Tensor, w: torch.Tensor, xf, level) -> None:
     if level.rows.device != xe.device:
         raise ValueError("level_scatter: plan and xe are on different "
                          "devices")
@@ -74,16 +88,16 @@ def _check(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
         raise ValueError(f"level_scatter: xe must be ({level.n + 1}, k), "
                          f"got {tuple(xe.shape)}")
     k = xe.shape[1]
-    for name, t in (("w", w), ("xf", xf)):
+    for name, t in (("w", w), ("xf", w if xf is None else xf)):
         if t.device != xe.device or t.dtype != xe.dtype:
             raise ValueError(f"level_scatter: {name} must have xe's device "
                              f"and dtype")
-        if t.numel() != level.n_level_slots * k or t.shape[-1] != k:
+        if t.numel() < level.n_level_slots * k or t.shape[-1] != k:
             raise ValueError(f"level_scatter: {name} must hold the level's "
                              f"{level.n_level_slots} slots × {k}, got "
                              f"{tuple(t.shape)}")
     if not (xe.is_contiguous() and w.is_contiguous()
-            and xf.is_contiguous()):
+            and (xf is None or xf.is_contiguous())):
         raise ValueError("level_scatter: xe, w and xf must be contiguous")
     if (xe.dtype, level.rows.dtype) not in _FN_NAMES:
         raise TypeError(f"level_scatter: unsupported types xe={xe.dtype}, "
@@ -102,12 +116,12 @@ def _plan_args(level) -> tuple:
     return args
 
 
-def level_scatter(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
-                  level) -> None:
+def level_scatter(xe: torch.Tensor, w: torch.Tensor, xf, level) -> None:
     """In place: ``xe[r] += Σ (w - xf)[s]`` over the real slots s of row r
     of one :class:`~..sparse_direct.solve_plan.ScatterLevel`, in ascending
     slot order; ``xe`` is (n + 1, k), ``w`` and ``xf`` the level's (nf, S,
-    k) values.  Row n is left as it is.
+    k) values (or at least as many, the level's first); ``xf`` None adds
+    ``w[s]``.  Row n is left as it is.
 
     CPU ``xe``: the plain version.  CUDA ``xe``: the K9 kernel, or an
     exception.  ``level_scatter.launches`` counts the launches issued from
@@ -122,10 +136,10 @@ def level_scatter(xe: torch.Tensor, w: torch.Tensor, xf: torch.Tensor,
         raise ValueError(f"level_scatter: no kernel for device {xe.device}")
     _check(xe, w, xf, level)
     fn = getattr(_lib(), _FN_NAMES[(xe.dtype, level.rows.dtype)])
-    with torch.cuda.device(xe.device):
-        stream = torch.cuda.current_stream(xe.device).cuda_stream
-        rc = fn(xe.data_ptr(), w.data_ptr(), xf.data_ptr(),
-                *_plan_args(level), xe.shape[1], stream)
+    args = (xe.data_ptr(), w.data_ptr(),
+            None if xf is None else xf.data_ptr(), *_plan_args(level),
+            xe.shape[1])
+    rc = on_device(xe.device, lambda stream: fn(*args, stream))
     if rc != 0:
         raise RuntimeError(f"level_scatter: kernel launch failed with CUDA "
                            f"error {rc}")

@@ -20,12 +20,15 @@ Lᴴ, as in the JAX package; without it a complex matrix is factored as
 complex-symmetric, LDLᵀ.
 
 The fronts are updated in place in the pool (views of it), which keeps the
-factor's memory at one pool.  Solves use the padded-unit trick: the partial
-factor extended with an identity trailing block makes one batched triangular
-solve per level do both the panel solve and the update accumulation; its
-result goes back into the right-hand side through K9
-(``kernels/level_scatter.py``), which follows the symbolic plan's scatter
-plan (``solve_plan.py``) and never touches a padded front slot.
+factor's memory at one pool.  A plain solve takes each level step by
+substitution through K10 (``kernels/level_solve.py``), which reads each
+front's L panel in place in the pool: forward, it solves the pivot rows in
+place and leaves ``-L21·w1`` at the update slots, which K9
+(``kernels/level_scatter.py``) adds into their rows; backward, it solves
+the pivot rows alone.  A solve with the panel inverses (the solve context)
+takes each level step as one batched product, whose result K9 adds back
+over the level's real slots.  Both follow the plans of ``solve_plan.py``
+and never touch a padded front slot.
 
 Precision: the factor, the solves and the panel inverses run with TF32 off
 (:func:`full_fp32_matmul`, which covers complex64 products too), as the JAX
@@ -50,6 +53,7 @@ from ..core.profiling import profile_region, profiled
 from ..kernels.extend_add import extend_add
 from ..kernels.front_panel import NB, ldl_panel
 from ..kernels.level_scatter import level_scatter
+from ..kernels.level_solve import level_solve
 from ..utils import transfers
 from .dist_front import PANEL, dist_partial_ldl, padded_size
 from .ea_plan import EAPlan
@@ -179,16 +183,17 @@ class LDLFactorization:
         k = x.shape[1]
         # x extended with a zero row that the padded front slots read
         xe = torch.cat([x[symb.perm], x.new_zeros((1, k))])
-        scatter = symb.solve_plan.levels
-        for i, lev in enumerate(symb.levels):
+        # K10's forward buffer of -L21·w1, one level's slots
+        delta = (xe.new_empty(symb.solve_plan.max_level_slots, k)
+                 if ctx is None else None)
+        levels = range(len(symb.levels))
+        for i in levels:
             with profile_region("el.ldl.solve.forward"):
-                self._level_solve(xe, lev, scatter[i], True,
-                                  None if ctx is None else ctx[i])
+                self._level_solve(xe, i, True, ctx, delta)
         xe[:n] = xe[:n] / self.d[:, None]
-        for i in reversed(range(len(symb.levels))):
+        for i in reversed(levels):
             with profile_region("el.ldl.solve.backward"):
-                self._level_solve(xe, symb.levels[i], scatter[i], False,
-                                  None if ctx is None else ctx[i])
+                self._level_solve(xe, i, False, ctx, delta)
         out = xe[:n][symb.iperm]
         return out[:, 0] if squeeze else out
 
@@ -213,25 +218,26 @@ class LDLFactorization:
         """The batch's transposes, conjugated for a Hermitian factor."""
         return m.mH if self.conjugate else m.mT
 
-    def _level_solve(self, xe, lev, scatter, forward: bool,
-                     linv=None) -> None:
-        """One level of the forward (or backward) tree solve, in place on
-        the extended right-hand side ``xe``; ``scatter``: the level's
-        :class:`~.solve_plan.ScatterLevel`, applied by K9."""
-        rows = lev.front_rows                              # (nf, S)
-        xf = xe[rows]                                      # (nf, S, k)
-        if linv is not None:
+    def _level_solve(self, xe, i: int, forward: bool, ctx=None,
+                     delta=None) -> None:
+        """Level ``i`` of the forward (or backward) tree solve, in place on
+        the extended right-hand side ``xe``.  With the solve context
+        ``ctx``, one batched product with the panel inverses, added back by
+        K9 over the level's real slots; without it, K10's substitution
+        (forward: K9 then adds the level's ``-L21·w1`` from ``delta``)."""
+        lev = self.symb.levels[i]
+        plan = self.symb.solve_plan
+        if ctx is not None:
             # backward: L⁻ᵀ, or conj(L⁻ᵀ) = L⁻ᴴ for a Hermitian factor
+            linv = ctx[i]
+            xf = xe[lev.front_rows]                        # (nf, S, k)
             w = torch.matmul(linv if forward else self._adjoint(linv), xf)
-        else:
-            lp = self._level_panels(lev)
-            if forward:
-                w = torch.linalg.solve_triangular(lp, xf, upper=False,
-                                                  unitriangular=True)
-            else:
-                w = torch.linalg.solve_triangular(
-                    self._adjoint(lp), xf, upper=True, unitriangular=True)
-        level_scatter(xe, w.contiguous(), xf, scatter)
+            level_scatter(xe, w.contiguous(), xf, plan.levels[i])
+            return
+        sub = plan.substitution[i]
+        level_solve(xe, self.pool, lev, sub, forward, self.conjugate, delta)
+        if forward and sub.update.n_rows:
+            level_scatter(xe, delta, None, sub.update)
 
     def solve_with_iterative_refinement(self, A_apply, b, iters: int = 6):
         """x ← x + F⁻¹(b − A·x) (reference ``SolveWithIterativeRefinement``,
